@@ -1,0 +1,58 @@
+"""NN helpers: the float path and the plain exact integer conv
+(counterpart of alpha_yolo_quant_tpu/ops/nn.py).
+
+Public functions take NCHW/OIHW like the JAX ones; ``nhwc=True`` selects
+the layout the integer runtime keeps its activations in.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def conv2d_f32(x, w, b=None, stride: int = 1, padding: int = 0):
+    """Float conv (cross-correlation), NCHW/OIHW."""
+    return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def maxpool2d(x, kernel: int = 5, stride: int = 1, padding: int = 2,
+              nhwc: bool = False):
+    """Max-pool with the window clipped to the valid region: padding never
+    wins (F.max_pool2d pads with -inf). Integer inputs go through float32,
+    which holds every int16 value exactly."""
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    out = F.max_pool2d(x.to(torch.float32), kernel, stride, padding)
+    out = out.to(x.dtype)
+    return out.permute(0, 2, 3, 1).contiguous() if nhwc else out
+
+
+def upsample_nearest(x, factor: int = 2, nhwc: bool = False):
+    """Nearest upsample: repeat every pixel factor x factor times."""
+    if nhwc:
+        b, h, w, c = x.shape
+        return (x[:, :, None, :, None, :]
+                .expand(b, h, factor, w, factor, c)
+                .reshape(b, h * factor, w * factor, c))
+    b, c, h, w = x.shape
+    return (x[:, :, :, None, :, None]
+            .expand(b, c, h, factor, w, factor)
+            .reshape(b, c, h * factor, w * factor))
+
+
+def conv2d_int_exact(x_int, w, stride: int = 1, padding: int = 0):
+    """Exact integer conv, NCHW/OIHW -> int64, on any device.
+
+    Runs F.conv2d in float64: every product and every partial sum is an
+    integer below 2^31 (bound checked per conv by
+    quantize/transform._check_accumulator_bounds), far inside float64's
+    2^53 exact-integer range, so any summation order gives the exact
+    result. Never run it on int8 tensors: an int8 conv2d wraps."""
+    acc = F.conv2d(x_int.to(torch.float64), w.to(torch.float64),
+                   stride=stride, padding=padding)
+    return acc.to(torch.int64)

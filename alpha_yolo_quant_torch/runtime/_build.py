@@ -1,0 +1,101 @@
+"""Build and load the Hopper kernels (runtime/csrc/*.cu).
+
+Each source is compiled by ``nvcc`` into its own shared library with a
+plain C interface and loaded with ``ctypes``; all sources compile at once,
+one ``nvcc`` process each. Libraries go to ``runtime/build/`` (listed in
+.gitignore), named by a hash of every source, header and flag, so an edit
+rebuilds and an unchanged tree reuses what is there. Nothing here runs at
+import time: the first wrapper call on a CUDA tensor triggers the build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("conv1x1", "conv3x3", "sigma_probe")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures (runtime/csrc/*.cu): every pointer and the stream as c_void_p
+ARGTYPES = {
+    "ayq_conv1x1": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+                    _I, _I, _I, _I, _I, _I, _P],
+    "ayq_conv3x3": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _P],
+    "ayq_sigma_probe": [_P, _I, _I, _P, _P],
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# seconds the last build() took and the ptxas report of each source
+BUILD_INFO: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return cand
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Dict[str, ctypes.CDLL]:
+    """Compile every missing library in parallel and load all of them."""
+    if _LIBS:
+        return _LIBS
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = _digest()
+    targets = {name: BUILD_DIR / f"libayq_{name}_{tag}.so"
+               for name in SOURCES}
+    procs: List = []
+    for name, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    # wait for every nvcc before acting on any failure, so none outlives us
+    logs = {name: proc.communicate()[0] for name, _, _, proc in procs}
+    for name, so, tmp, proc in procs:
+        BUILD_INFO[f"ptxas_{name}"] = logs[name]
+        (BUILD_DIR / f"{name}_{tag}.log").write_text(logs[name])
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{logs[name]}")
+        # atomic: a concurrent builder never loads half a file
+        os.replace(tmp, so)
+    for name, so in targets.items():
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in ARGTYPES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    return _LIBS
+
+
+def kernel(source: str, fn: str):
+    """The C entry point ``fn`` of ``csrc/<source>.cu``, built on first use."""
+    return getattr(build()[source], fn)

@@ -1,0 +1,379 @@
+"""Integer interpreter of the quantized network on torch tensors
+(counterpart of alpha_yolo_quant_tpu/runtime/interpreter.py).
+
+Both packages consume the same host-side numpy ``QuantizedModel``;
+``device_plan`` carries its integers onto a torch device, so the two
+runtimes compute the same function. Activations live in NHWC, int8, or
+int16 on the wide edges (``edge_amax_int > 127``); public outputs are
+NCHW like the JAX function's. Every conv runs through the Hopper kernel
+wrappers (runtime/fused_ops.py): the kernels on a CUDA device, their
+plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from alpha_yolo_quant_tpu.models.graph import (
+    ConcatNode, ConvNode, MaxPoolNode, ResidualAddNode, SplitNode,
+    UpsampleNode,
+)
+from alpha_yolo_quant_tpu.quantize.transform import QuantizedModel
+from alpha_yolo_quant_torch.models.head import (
+    STRIDES, decode_float, dequantize_heads, dist2bbox, make_anchors,
+)
+from alpha_yolo_quant_torch.ops.intmath import requantize, requantize_small
+from alpha_yolo_quant_torch.ops.lut import DeviceLut
+from alpha_yolo_quant_torch.ops.nn import maxpool2d, upsample_nearest
+from alpha_yolo_quant_torch.runtime import fused_ops
+
+
+def device_plan(model: QuantizedModel, device) -> Dict:
+    """The model's integer constants as tensors on ``device``: per conv the
+    wrapper entry (fused_ops.conv_entry), the scalar structural requants,
+    the LUTs as tables, and the full-quant head constants. Runs the sigma
+    probe once, which must find no fixups."""
+    device = torch.device(device)
+    qmax = model.cfg.qmax
+    sig = DeviceLut(model.sig_lut, device)
+    if not (sig.lo <= -qmax and sig.hi >= qmax):
+        raise ValueError("sigmoid LUT domain must cover the clipped "
+                         "requant range")
+    corrections = fused_ops.sigma_corrections(sig)
+    if corrections:
+        raise RuntimeError(f"epilogue sigmoid differs from the table at "
+                           f"{corrections}")
+    plan: Dict = {"device": device, "sig_lut": sig, "convs": {},
+                  "requants": {}}
+    for name, c in model.convs.items():
+        n = c.node
+        plan["convs"][name] = fused_ops.conv_entry(
+            c.w_q, c.b_q, n.stride, n.padding, n.silu, device,
+            r1=c.r1, s1=c.s1, r2=c.r2, s2=c.s2)
+    for key, r in model.requants.items():
+        plan["requants"][key] = (int(r.rescale), int(r.shift))
+    if model.head is not None:
+        h = model.head
+
+        def lv(d):
+            return {k: torch.as_tensor(np.int64(v), device=device)
+                    for k, v in d.items()}
+
+        plan["head"] = {
+            "box_r": lv(h.box_r), "box_s": lv(h.box_s),
+            "cls_r": lv(h.cls_r), "cls_s": lv(h.cls_s),
+            "exp_lut": DeviceLut(h.exp_lut, device),
+            "cls_sig_lut": DeviceLut(h.cls_sigmoid_lut, device),
+            "dfl_w": torch.as_tensor(np.int64(h.dfl_w_q).reshape(16),
+                                     device=device),
+        }
+    return plan
+
+
+def quantize_input(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Image (NCHW f32 in [0, 1], or raw uint8 pixels) -> int8 K-bit
+    values at the pinned a=1 of the golden pipeline, rounding half to
+    even. uint8 is normalised here as u/255 in float32 (correctly
+    rounded, so identical to a host loader feeding f32)."""
+    if x.dtype == torch.uint8:
+        x = x.to(torch.float32) / 255.0
+    if k > 8:
+        raise ValueError(f"k={k}: quantized inputs are carried as int8")
+    qmax = 2 ** (k - 1) - 1
+    return torch.round(torch.clamp(x, -1.0, 1.0) * float(qmax)).to(
+        torch.int8)
+
+
+def _store_dtype(model: QuantizedModel, edge: str) -> torch.dtype:
+    """int16 on the wide edges (|v| up to 3*qmax), int8 elsewhere."""
+    return torch.int16 if model.edge_amax_int.get(edge, 0) > 127 \
+        else torch.int8
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2) if t.dim() == 4 else t
+
+
+def int_forward(model: QuantizedModel, plan: Dict, x_q: torch.Tensor,
+                keep_env: bool = False, head_requant: bool = False,
+                plain: bool = False) -> Dict[str, torch.Tensor]:
+    """Run the integer graph on NCHW int8 input. Returns the six head
+    edges, NCHW: raw int32 accumulators, or with head_requant the
+    full-quant head's first requant (box -> int8, cls -> int16).
+
+    plain=True runs every conv through the kernels' plain PyTorch version
+    on whatever device the input is on: the reference path that a kernel
+    run on the card is held against.
+
+    keep_env adds ``'__env__'``: every edge (NCHW) plus the golden
+    oracle's intermediates ``<conv>:sigdom``, ``<label>:rescale`` and
+    ``<label>:<edge>:requant``. The edges come from the same kernels as
+    without it; the sigdom values are recomputed by the plain conv."""
+    qmax = model.cfg.qmax
+    sig = plan["sig_lut"]
+    env: Dict[str, torch.Tensor] = {
+        model.graph.input_edge: x_q.permute(0, 2, 3, 1).contiguous()}
+    extra: Dict[str, torch.Tensor] = {}
+    for idx, node in enumerate(model.graph.nodes):
+        if isinstance(node, ConvNode):
+            c = plan["convs"][node.name]
+            x = env[node.src]
+            conv = (fused_ops.conv_plain if plain
+                    else fused_ops.conv1x1 if node.kernel == 1
+                    else fused_ops.conv3x3)
+            env[node.dst] = conv(x, c, sig, qmax)
+            if keep_env and node.silu:
+                acc = fused_ops.conv_acc_plain(x, c)
+                extra[f"{node.name}:sigdom"] = _nchw(
+                    requantize(acc, c["r1"], c["s1"], qmax))
+        elif isinstance(node, SplitNode):
+            t = env[node.src]
+            h = t.shape[3] // 2
+            env[node.dst1] = t[..., :h].contiguous()
+            env[node.dst2] = t[..., h:].contiguous()
+        elif isinstance(node, ResidualAddNode):
+            r, s = plan["requants"][(idx, node.src)]
+            req = requantize_small(env[node.src], r, s, qmax)
+            if keep_env:
+                extra[f"{node.label}:rescale"] = _nchw(req)
+            out = req + env[node.base].to(torch.int32)
+            bound = model.clip_after_residual.get(idx)
+            if bound is not None:
+                out = torch.clamp(out, -bound, bound)
+            env[node.dst] = out.to(_store_dtype(model, node.dst))
+        elif isinstance(node, ConcatNode):
+            dt = _store_dtype(model, node.dst)
+            parts = []
+            for e in node.srcs:
+                t = env[e]
+                if (idx, e) in plan["requants"]:
+                    r, s = plan["requants"][(idx, e)]
+                    t = requantize_small(t, r, s, qmax)
+                    if keep_env:
+                        extra[f"{node.label}:{e}:requant"] = _nchw(t)
+                parts.append(t.to(dt))
+            env[node.dst] = torch.cat(parts, dim=3)
+        elif isinstance(node, MaxPoolNode):
+            env[node.dst] = maxpool2d(env[node.src], node.kernel,
+                                      node.stride, node.padding, nhwc=True)
+        elif isinstance(node, UpsampleNode):
+            env[node.dst] = upsample_nearest(env[node.src], node.factor,
+                                             nhwc=True)
+        else:  # pragma: no cover
+            raise TypeError(type(node))
+
+    outs = {role: _nchw(env[e]).contiguous()
+            for role, e in model.graph.outputs.items()}
+    if head_requant:
+        if model.head is None:
+            raise ValueError("head_requant needs a full-quant model")
+        hp = plan["head"]
+        for level in ("p3", "p4", "p5"):
+            for kind, qmx, dt in (("box", 127, torch.int8),
+                                  ("cls", 2 ** 15 - 1, torch.int16)):
+                role = f"{level}_{kind}"
+                outs[role] = requantize(outs[role], hp[f"{kind}_r"][level],
+                                        hp[f"{kind}_s"][level], qmx).to(dt)
+    if keep_env:
+        outs["__env__"] = {**{k: _nchw(v) for k, v in env.items()}, **extra,
+                           **{role: _nchw(env[e])
+                              for role, e in model.graph.outputs.items()}}
+    return outs
+
+
+def _dfl_softmax_probs(bins: torch.Tensor, dim: int,
+                       exp_lut: DeviceLut) -> torch.Tensor:
+    """Quantized DFL softmax over the 16-bin axis: p = (127*e) // sum with
+    a true integer floor (e >= 0, so it equals the reference's float64
+    truncation)."""
+    y = bins - torch.amax(bins, dim=dim, keepdim=True)
+    e = exp_lut.apply(y).to(torch.int64)
+    ssum = torch.clamp(e.sum(dim=dim, keepdim=True), min=1)
+    return torch.div(127 * e, ssum, rounding_mode="floor")
+
+
+def _dfl_requant(model: QuantizedModel, plan: Dict, p: torch.Tensor,
+                 dim: int) -> torch.Tensor:
+    """16-tap DFL dot (exact int64) + requant to the anchor scale."""
+    shape = [1] * p.dim()
+    shape[dim] = 16
+    acc = (p * plan["head"]["dfl_w"].reshape(shape)).sum(dim=dim)
+    h = model.head
+    return requantize(acc, h.dfl_r, h.dfl_s, 2 ** 15 - 1)
+
+
+def _conf_cid_packed(cq: torch.Tensor):
+    """(max, argmax) over the class axis (dim 1) as one max of the packed
+    key score*128 + (C-1-class): ties go to the lowest class."""
+    c = cq.shape[1]
+    rev = torch.arange(c - 1, -1, -1, dtype=torch.int64, device=cq.device)
+    key = (cq.to(torch.int64) << 7) + rev.reshape((1, c) + (1,) *
+                                                  (cq.dim() - 2))
+    kmax = torch.amax(key, dim=1)
+    return kmax >> 7, ((c - 1) - (kmax & 127)).to(torch.float32)
+
+
+def _decode_serving_per_level(model: QuantizedModel, plan: Dict,
+                              outs: Dict):
+    """Serving decode of head_requant outputs, level by level. Returns
+    (dbox (B,4,N) xywh in anchor-scale units, conf (B,N) f32 pre-sigmoid
+    class ints, cid (B,N) f32), N in p3, p4, p5 row-major anchor order."""
+    h = model.head
+    dboxes, confs, cids = [], [], []
+    for li, level in enumerate(("p3", "p4", "p5")):
+        bq = outs[f"{level}_box"].to(torch.int64)       # (b,64,h,w)
+        cq = outs[f"{level}_cls"]                        # (b,80,h,w)
+        b, _, hh, ww = bq.shape
+        p = _dfl_softmax_probs(bq.reshape(b, 4, 16, hh, ww), 2,
+                               plan["head"]["exp_lut"])
+        dfl_q = _dfl_requant(model, plan, p, 2)
+        anchors_l, strides_l = make_anchors(
+            [(hh, ww)], strides=STRIDES[li:li + 1], device=bq.device)
+        anchors_ql = torch.round(anchors_l * h.anchor_scale)
+        dboxes.append(dist2bbox(
+            dfl_q.reshape(b, 4, hh * ww).to(torch.float32),
+            anchors_ql[None]) * strides_l)
+        conf_l, cid_l = _conf_cid_packed(cq)
+        confs.append(conf_l.reshape(b, -1).to(torch.float32))
+        cids.append(cid_l.reshape(b, -1))
+    return torch.cat(dboxes, 2), torch.cat(confs, 1), torch.cat(cids, 1)
+
+
+def decode_full_quant(model: QuantizedModel, plan: Dict, outs: Dict,
+                      sigmoid_cls: bool = True, reduce_cls: bool = False,
+                      pre_requantized: bool = False):
+    """Fully-quantized head: 8-bit box requant, LUT-exponent softmax,
+    quantized DFL, quantized anchors, 16-bit LUT class sigmoid. Returns
+    (B, 84, N) in anchor-scale box units and 16-bit sigmoid class units;
+    with reduce_cls (sigmoid deferred) the tuple (boxes_xywh (B,4,N),
+    conf (B,N), cls (B,N)) instead."""
+    if reduce_cls and sigmoid_cls:
+        raise ValueError("reduce_cls defers the sigmoid to NMS")
+    if pre_requantized and reduce_cls:
+        return _decode_serving_per_level(model, plan, outs)
+    h = model.head
+    hp = plan["head"]
+    boxes, clss, shapes = [], [], []
+    for level in ("p3", "p4", "p5"):
+        bq = outs[f"{level}_box"]
+        cq = outs[f"{level}_cls"]
+        shapes.append((bq.shape[2], bq.shape[3]))
+        if not pre_requantized:
+            bq = requantize(bq, hp["box_r"][level], hp["box_s"][level], 127)
+            cq = requantize(cq, hp["cls_r"][level], hp["cls_s"][level],
+                            2 ** 15 - 1)
+        b = bq.shape[0]
+        boxes.append(bq.to(torch.int64).reshape(b, 64, -1))
+        clss.append(cq.to(torch.int64).reshape(b, 80, -1))
+    box = torch.cat(boxes, 2)
+    cls = torch.cat(clss, 2)
+    b, _, n = box.shape
+    p = _dfl_softmax_probs(box.reshape(b, 4, 16, n), 2, hp["exp_lut"])
+    dfl_q = _dfl_requant(model, plan, p, 2)
+    anchors, strides = make_anchors(shapes, device=box.device)
+    anchors_q = torch.round(anchors * h.anchor_scale)
+    dbox = dist2bbox(dfl_q.to(torch.float32), anchors_q[None]) * strides
+    if reduce_cls:
+        conf_i, cid = _conf_cid_packed(cls)
+        return dbox, conf_i.to(torch.float32), cid
+    if sigmoid_cls:
+        cls = hp["cls_sig_lut"].apply(cls)
+    return torch.cat((dbox, cls.to(torch.float32)), 1)
+
+
+def cls_int_conf_threshold(model: QuantizedModel,
+                           conf_thres_int: int = 8192) -> float:
+    """Smallest requantized class score whose 16-bit sigmoid exceeds the
+    integer threshold, minus 0.5: the pre-sigmoid form of
+    ``conf > conf_thres_int`` (the sigmoid is monotone)."""
+    lut = model.head.cls_sigmoid_lut
+    above = np.nonzero(lut.values > conf_thres_int)[0]
+    if len(above) == 0:
+        return float(lut.hi) + 0.5
+    return float(above[0] + lut.lo) - 0.5
+
+
+def build_int_pipeline(model: QuantizedModel, device="cuda",
+                       dfl_w_float=None, with_nms: bool = True,
+                       pad_batch_to: Optional[int] = None,
+                       coalesce_requests: Optional[int] = None,
+                       plain: bool = False):
+    """Return ``(fn, plan)``: fn maps images (NCHW float32 in [0, 1] or
+    uint8, numpy or torch) to detections ``(det (B,300,6), n_det (B,))``
+    on ``device``.
+
+    Full quant: integer head, deferred-sigmoid q_NMS. Partial quant: the
+    float head (dequantized accumulators) needs ``dfl_w_float``.
+    pad_batch_to: pad the quantized batch with zero images up to this
+    width for the conv stack and slice back (per-image results are batch
+    independent). coalesce_requests=N: fn takes N request arrays,
+    quantizes each, runs one forward over their concatenation and returns
+    one result per request. plain: convs through their plain versions
+    (see int_forward)."""
+    from alpha_yolo_quant_torch.postprocess.nms import (
+        NmsParams, non_max_suppression, q_nms_params,
+    )
+    from alpha_yolo_quant_torch.serving import split_by_sizes
+
+    device = torch.device(device)
+    plan = device_plan(model, device)
+    k = model.cfg.k
+    full = model.cfg.full_quant
+    if full:
+        # rank raw int class scores; sigmoid only the kept rows
+        nms_params = dataclasses.replace(
+            q_nms_params(model.head.anchor_scale),
+            conf_thres=cls_int_conf_threshold(model))
+        score_map = plan["head"]["cls_sig_lut"].apply
+    else:
+        nms_params = NmsParams(conf_thres=0.25)
+        score_map = None
+        if dfl_w_float is None:
+            raise ValueError("partial-quant pipeline needs dfl_w_float")
+        dfl_w = torch.as_tensor(np.asarray(dfl_w_float), dtype=torch.float32,
+                                device=device)
+
+    def _post(outs):
+        if full:
+            preds = decode_full_quant(model, plan, outs, sigmoid_cls=False,
+                                      reduce_cls=with_nms,
+                                      pre_requantized=True)
+        else:
+            preds = decode_float(dequantize_heads(model, outs), dfl_w)
+        if with_nms:
+            return non_max_suppression(preds, nms_params,
+                                       score_map=score_map)
+        return preds
+
+    def _quantized_run(x_q, b):
+        padded = pad_batch_to is not None and b < pad_batch_to
+        if padded:
+            x_q = torch.cat((x_q, x_q.new_zeros((pad_batch_to - b,)
+                                                + x_q.shape[1:])), 0)
+        outs = int_forward(model, plan, x_q, head_requant=full, plain=plain)
+        if padded:
+            outs = {name: t[:b] for name, t in outs.items()}
+        return _post(outs)
+
+    def _quant(images):
+        return quantize_input(torch.as_tensor(images, device=device), k)
+
+    if coalesce_requests is not None:
+        n_req = int(coalesce_requests)
+
+        def fn(*requests):
+            if len(requests) != n_req:
+                raise ValueError(f"expected {n_req} requests, "
+                                 f"got {len(requests)}")
+            sizes = [r.shape[0] for r in requests]
+            x_q = torch.cat([_quant(r) for r in requests], 0)
+            return split_by_sizes(_quantized_run(x_q, sum(sizes)), sizes)
+    else:
+        def fn(images):
+            return _quantized_run(_quant(images), images.shape[0])
+
+    return fn, plan
