@@ -1,0 +1,134 @@
+"""Where a B=128 serving batch spends its device time, per engine.
+
+    python3 -m alpha_yolo_quant_torch.engine_profile
+
+Needs one CUDA card (and nvcc for the kernels). Builds the model that
+chip_smoke.py serves (yolov8n K=8 full quant 640, random weights from seed
+0, the port's calibration on two seeded images) and, for each engine
+(fused, pallas, packed): CUDA events around quantize, int_forward and the
+decode + q_NMS tail of one batch, then one torch.profiler pass over a
+whole batch with the device time summed by kernel, the port's kernels by
+name and the rest as torch ops. Prints one JSON line per engine.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from alpha_yolo_quant_torch.runtime import fused_ops
+from alpha_yolo_quant_torch.runtime.interpreter import (
+    build_int_pipeline, int_forward, quantize_input,
+)
+
+BATCH = 128
+# device-side names of the port's kernels (runtime/csrc) -> report label
+PORT_KERNELS = {"conv_igemm": "conv1x1/conv3x3", "postconv_kernel":
+                "postconv", "packed_conv_kernel": "packed_conv",
+                "sigma_probe_kernel": "sigma_probe"}
+
+
+def build_model(image_size: int = 640, device="cuda"):
+    """yolov8n K=8 full quant, random weights from seed 0, calibrated by
+    the port's float forward on two seeded images (the model chip_smoke.py
+    serves)."""
+    from alpha_yolo_quant_torch.config import QuantConfig
+    from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
+    from alpha_yolo_quant_torch.models.params import init_params
+    from alpha_yolo_quant_torch.quantize.calibrate import (
+        collect_stats, reduce_stats,
+    )
+    from alpha_yolo_quant_torch.quantize.transform import (
+        build_quantized_model,
+    )
+
+    cfg = QuantConfig(model="yolov8n", k=8, full_quant=True,
+                      image_size=image_size)
+    graph = build_yolov8_graph(cfg)
+    params = init_params(graph, seed=0)
+    calib = np.random.default_rng(1).uniform(
+        0, 1, (2, 3, image_size, image_size)).astype(np.float32)
+    max_a = reduce_stats(collect_stats(graph, params, [calib], device),
+                         "max", cfg.k)
+    return build_quantized_model(graph, params, max_a, cfg)
+
+
+def _events_ms(fn):
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _device_ms(evt) -> float:
+    for attr in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, attr):
+            return getattr(evt, attr) / 1e3
+    return 0.0
+
+
+def profile_engine(model, engine: str, x: torch.Tensor) -> dict:
+    fn, plan = build_int_pipeline(model, "cuda", engine=engine)
+    full = model.cfg.full_quant
+    fn(x)                                   # warm-up: builds, caches
+    torch.cuda.synchronize()
+    _, wall = _events_ms(lambda: fn(x))
+    xq, quant_ms = _events_ms(lambda: quantize_input(x, model.cfg.k))
+    fused_ops.reset_counts()
+    _, fwd_ms = _events_ms(lambda: int_forward(
+        model, plan, xq, head_requant=full, engine=engine))
+    launches = {k: v for k, v in fused_ops.LAUNCHES.items() if v}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    by_kernel: dict = defaultdict(float)
+    top = []
+    for evt in prof.key_averages():
+        ms = _device_ms(evt)
+        if ms <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        label = next((v for k, v in PORT_KERNELS.items() if k in evt.key),
+                     "torch ops")
+        by_kernel[label] += ms
+        top.append((ms, evt.key[:90], evt.count))
+    top.sort(reverse=True)
+    busy = sum(by_kernel.values())
+    return {"engine": engine, "batch": int(x.shape[0]),
+            "wall_ms": wall, "quantize_ms": quant_ms,
+            "int_forward_ms": fwd_ms,
+            "decode_nms_ms": wall - quant_ms - fwd_ms,
+            "device_busy_ms": busy,
+            "device_ms_by_kernel": dict(by_kernel),
+            "forward_launches": launches,
+            "top_kernels": [{"ms": m, "name": n, "calls": c}
+                            for m, n, c in top[:8]]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("engine_profile: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    model = build_model()
+    s = model.cfg.image_size
+    x = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 256, (BATCH, 3, s, s)).astype(np.uint8), device="cuda")
+    for engine in ("fused", "pallas", "packed"):
+        print(json.dumps(dict(profile_engine(model, engine, x), card=card)),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,7 +7,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from alpha_yolo_quant_tpu.models.graph import (
+from alpha_yolo_quant_torch.models.graph import (
     ConcatNode, ConvNode, Graph, MaxPoolNode, ResidualAddNode, SplitNode,
     UpsampleNode,
 )

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from alpha_yolo_quant_tpu.quantize.luts import Lut
+from alpha_yolo_quant_torch.quantize.luts import Lut
 
 
 class DeviceLut:

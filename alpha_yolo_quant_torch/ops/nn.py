@@ -2,7 +2,8 @@
 (counterpart of alpha_yolo_quant_tpu/ops/nn.py).
 
 Public functions take NCHW/OIHW like the JAX ones; ``nhwc=True`` selects
-the layout the integer runtime keeps its activations in.
+the layout the integer runtime keeps its activations in (the nibble split
+conv2d_int_parts takes NHWC only: it serves that runtime).
 """
 
 from __future__ import annotations
@@ -56,3 +57,26 @@ def conv2d_int_exact(x_int, w, stride: int = 1, padding: int = 0):
     acc = F.conv2d(x_int.to(torch.float64), w.to(torch.float64),
                    stride=stride, padding=padding)
     return acc.to(torch.int64)
+
+
+def conv2d_int_parts(x_nhwc: torch.Tensor, c: dict):
+    """The two nibble-split partial convs of the ``pallas`` engine
+    (alpha_yolo_quant_tpu/ops/nn.py conv2d_int_parts): x = 16*(x >> 4) +
+    (x & 15), each part conv'd alone, so acc = 16*hi + lo + bias.
+
+    x_nhwc: int8 or wide int16 NHWC; c: the conv's plan entry
+    (runtime/fused_ops.conv_entry). ``x >> 4`` is an arithmetic shift, in
+    [-24, 23] for |x| <= 381, and ``x & 15`` is in [0, 15], so both parts
+    are int8 and run on the conv kernels (the plain epilogue, zero bias:
+    exact int32). Returns (hi, lo) as float32 NHWC, the form the postconv
+    kernels read; every partial sum is an integer below 2^24
+    (quantize/transform._check_accumulator_bounds), so float32 holds it
+    exactly."""
+    from alpha_yolo_quant_torch.runtime import fused_ops
+
+    conv = fused_ops.conv1x1 if c["kernel"] == 1 else fused_ops.conv3x3
+    parts = dict(c, silu=False, b=torch.zeros_like(c["b"]))
+    x_hi = (x_nhwc >> 4).to(torch.int8).contiguous()
+    x_lo = (x_nhwc & 15).to(torch.int8).contiguous()
+    return (conv(x_hi, parts).to(torch.float32),
+            conv(x_lo, parts).to(torch.float32))

@@ -13,15 +13,16 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from alpha_yolo_quant_tpu.models.graph import Graph
+from alpha_yolo_quant_torch.models.graph import Graph
 from alpha_yolo_quant_torch.models.forward import forward_float
 from alpha_yolo_quant_torch.models.params import params_to_torch
 
 
 @torch.no_grad()
 def collect_stats(graph: Graph, params: Dict, batches: Iterable[np.ndarray],
-                  device="cpu") -> Dict[str, List[float]]:
-    """Run calibration batches; returns tap -> list of per-image maxima.
+                  device="cuda") -> Dict[str, List[float]]:
+    """Run calibration batches on ``device`` (the card unless the caller
+    names another); returns tap -> list of per-image maxima.
     ``params``: the float params dict, numpy or torch."""
     tp = params_to_torch(params, device)
     records: Dict[str, List[float]] = {}

@@ -21,18 +21,24 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("conv1x1", "conv3x3", "sigma_probe")
+SOURCES = ("conv1x1", "conv3x3", "sigma_probe", "postconv", "packed_conv")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures (runtime/csrc/*.cu): every pointer and the stream as c_void_p
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+# C signatures (runtime/csrc/*.cu): every device pointer and the stream as
+# c_void_p; host arrays (the slab conv's tap table) as pointer types
 ARGTYPES = {
     "ayq_conv1x1": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                     _I, _I, _I, _I, _I, _I, _P],
     "ayq_conv3x3": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                     _I, _I, _I, _I, _I, _I, _I, _P],
     "ayq_sigma_probe": [_P, _I, _I, _P, _P],
+    "ayq_postconv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _L, _I,
+                     _L, _I, _P],
+    "ayq_packed_conv": [_PP, _PI, _I, _PI, _PI, _PI, _I, _P, _P, _P, _P, _P,
+                        _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

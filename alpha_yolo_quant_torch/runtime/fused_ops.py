@@ -1,5 +1,7 @@
 """Wrappers of the Hopper kernels (counterpart of
-alpha_yolo_quant_tpu/runtime/pallas_ops.py).
+alpha_yolo_quant_tpu/runtime/pallas_ops.py). The banded slab conv's
+wrapper lives beside its layout code in runtime/packed_conv.py and counts
+its launches here too.
 
 Each kernel has its plain PyTorch version in this module and a launch
 count in ``LAUNCHES``. A wrapper given a CPU tensor runs the plain
@@ -25,7 +27,9 @@ from alpha_yolo_quant_torch.ops.nn import conv2d_int_exact
 
 # kernel launches since the last reset_counts(); only a launch of the
 # kernel itself counts, never a plain-version call
-LAUNCHES: Dict[str, int] = {"conv1x1": 0, "conv3x3": 0, "sigma_probe": 0}
+LAUNCHES: Dict[str, int] = {"conv1x1": 0, "conv3x3": 0, "sigma_probe": 0,
+                            "postconv_silu": 0, "postconv_plain": 0,
+                            "packed_conv": 0}
 
 K_TILE = 32        # conv_igemm.cuh BK: packed weight depth is padded to it
 MAX_LUT = 256      # epilogue.cuh kMaxLut
@@ -98,6 +102,31 @@ def sigma_probe_plain(sig: DeviceLut) -> torch.Tensor:
     return sig.apply_clipped(dom)
 
 
+def _channel_shape(t: torch.Tensor, axis: int):
+    shape = [1] * t.dim()
+    shape[axis] = -1
+    return shape
+
+
+def _postconv_acc_plain(hi, lo, bias, axis: int) -> torch.Tensor:
+    """16*hi + lo + bias in int64 (hi, lo: float32 holding integers)."""
+    return (hi.to(torch.int64) * 16 + lo.to(torch.int64)
+            + bias.to(torch.int64).reshape(_channel_shape(hi, axis)))
+
+
+def postconv_silu_plain(hi, lo, bias, r1, s1, r2, s2, sig: DeviceLut,
+                        qmax: int = 127, axis: int = 1) -> torch.Tensor:
+    acc = _postconv_acc_plain(hi, lo, bias, axis)
+    shape = _channel_shape(hi, axis)
+    c = {f: v.reshape(shape) for f, v in
+         (("r1", r1), ("s1", s1), ("r2", r2), ("s2", s2))}
+    return silu_epilogue_plain(acc, c, sig, qmax)
+
+
+def postconv_plain_plain(hi, lo, bias, axis: int = 1) -> torch.Tensor:
+    return _postconv_acc_plain(hi, lo, bias, axis).to(torch.int32)
+
+
 # --------------------------------------------------------------- kernels
 
 def _stream(t: torch.Tensor) -> int:
@@ -110,6 +139,13 @@ def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return False
+
+
+def _check_table(name: str, sig: DeviceLut, qmax: int) -> None:
+    n = sig.values.numel()
+    if n > MAX_LUT or sig.lo > -qmax or sig.hi < qmax:
+        raise ValueError(f"{name}: sigmoid table [{sig.lo}, {sig.hi}] "
+                         f"must cover +-{qmax} in <= {MAX_LUT} entries")
 
 
 def _check_conv(name: str, x: torch.Tensor, c: Dict, sig, qmax: int):
@@ -128,10 +164,7 @@ def _check_conv(name: str, x: torch.Tensor, c: Dict, sig, qmax: int):
         raise ValueError(f"{name}: weights on {c['w_packed'].device}, "
                          f"input on {x.device}")
     if c["silu"]:
-        n = sig.values.numel()
-        if n > MAX_LUT or sig.lo > -qmax or sig.hi < qmax:
-            raise ValueError(f"{name}: sigmoid table [{sig.lo}, {sig.hi}] "
-                             f"must cover +-{qmax} in <= {MAX_LUT} entries")
+        _check_table(name, sig, qmax)
 
 
 def _launch_conv(name: str, x: torch.Tensor, c: Dict, sig, qmax: int):
@@ -185,6 +218,71 @@ def conv3x3(x: torch.Tensor, c: Dict, sig: DeviceLut = None,
     if _on_cpu(x):
         return conv_plain(x, c, sig, qmax)
     return _launch_conv("conv3x3", x, c, sig, qmax)
+
+
+def _launch_postconv(name: str, hi, lo, consts, sig, qmax: int,
+                     axis: int) -> torch.Tensor:
+    from alpha_yolo_quant_torch.runtime._build import kernel
+
+    silu = name == "postconv_silu"
+    if hi.dtype != torch.float32 or lo.dtype != torch.float32:
+        raise TypeError(f"{name}: hi and lo must be float32")
+    if hi.shape != lo.shape or not (hi.is_contiguous()
+                                    and lo.is_contiguous()):
+        raise ValueError(f"{name}: hi and lo must be contiguous, one shape")
+    if not 0 <= axis < hi.dim():
+        raise ValueError(f"{name}: channel axis {axis} of a {hi.dim()}-d "
+                         "tensor")
+    n_ch = hi.shape[axis]
+    for t in consts:
+        if t.dtype != torch.int32 or t.shape != (n_ch,) \
+                or t.device != hi.device or lo.device != hi.device:
+            raise ValueError(f"{name}: per-channel constants must be "
+                             f"int32 ({n_ch},) on {hi.device}")
+    if silu:
+        _check_table(name, sig, qmax)
+        tab, tab_lo, tab_n = sig.values, sig.lo, sig.values.numel()
+        consts = list(consts)
+    else:   # the plain epilogue reads only the bias
+        tab, tab_lo, tab_n = consts[0], 0, 0
+        consts = [consts[0]] * 5
+    inner = 1
+    for d in hi.shape[axis + 1:]:
+        inner *= d
+    out = torch.empty(hi.shape, dtype=torch.int8 if silu else torch.int32,
+                      device=hi.device)
+    rc = kernel("postconv", "ayq_postconv")(
+        hi.data_ptr(), lo.data_ptr(), *[t.data_ptr() for t in consts],
+        tab.data_ptr(), tab_lo, tab_n, out.data_ptr(), int(silu),
+        hi.numel(), n_ch, inner, qmax, _stream(hi))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def postconv_silu(hi: torch.Tensor, lo: torch.Tensor, bias, r1, s1, r2, s2,
+                  sig: DeviceLut, qmax: int = 127,
+                  axis: int = 1) -> torch.Tensor:
+    """acc = 16*hi + lo + bias from the two float32 nibble-split partial
+    convs, then the SiLU requant chain -> int8 (replaces
+    pallas_ops.fused_postconv_silu). Per-channel (C,) int32 constants
+    along ``axis``: 1 for the JAX function's NCHW, 3 for NHWC."""
+    if _on_cpu(hi):
+        return postconv_silu_plain(hi, lo, bias, r1, s1, r2, s2, sig, qmax,
+                                   axis)
+    return _launch_postconv("postconv_silu", hi, lo, (bias, r1, s1, r2, s2),
+                            sig, qmax, axis)
+
+
+def postconv_plain(hi: torch.Tensor, lo: torch.Tensor, bias,
+                   axis: int = 1) -> torch.Tensor:
+    """acc = 16*hi + lo + bias -> int32 (replaces
+    pallas_ops.fused_postconv_plain: the head's raw accumulators)."""
+    if _on_cpu(hi):
+        return postconv_plain_plain(hi, lo, bias, axis)
+    return _launch_postconv("postconv_plain", hi, lo, (bias,), None, 127,
+                            axis)
 
 
 def sigma_probe(sig: DeviceLut) -> torch.Tensor:

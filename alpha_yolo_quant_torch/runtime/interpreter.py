@@ -6,8 +6,18 @@ Both packages consume the same host-side numpy ``QuantizedModel``;
 runtimes compute the same function. Activations live in NHWC, int8, or
 int16 on the wide edges (``edge_amax_int > 127``); public outputs are
 NCHW like the JAX function's. Every conv runs through the Hopper kernel
-wrappers (runtime/fused_ops.py): the kernels on a CUDA device, their
-plain versions on the CPU.
+wrappers (runtime/fused_ops.py, runtime/packed_conv.py): the kernels on a
+CUDA device, their plain versions on the CPU.
+
+Engines (``int_forward(engine=...)``), all bit-identical:
+  fused   every conv on the implicit-GEMM kernels conv1x1/conv3x3 with
+          the epilogue in registers, wide int16 inputs included
+  pallas  every conv as two nibble-split partial convs (ops/nn.py
+          conv2d_int_parts) and the postconv epilogue kernels, as the
+          JAX ``pallas`` engine runs them
+  packed  the narrow-channel region lane-packed in slabs, its convs on the
+          banded packed_conv kernel (runtime/slabforward.py); the other
+          convs as in ``fused``
 """
 
 from __future__ import annotations
@@ -18,18 +28,26 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from alpha_yolo_quant_tpu.models.graph import (
+from alpha_yolo_quant_torch.models.graph import (
     ConcatNode, ConvNode, MaxPoolNode, ResidualAddNode, SplitNode,
     UpsampleNode,
 )
-from alpha_yolo_quant_tpu.quantize.transform import QuantizedModel
-from alpha_yolo_quant_torch.models.head import (
-    STRIDES, decode_float, dequantize_heads, dist2bbox, make_anchors,
+from alpha_yolo_quant_torch.models.head import (  # noqa: F401 (re-export)
+    STRIDES, decode_float, dequantize_heads, dist2bbox, head_conv_name,
+    make_anchors,
 )
+from alpha_yolo_quant_torch.quantize.transform import QuantizedModel
 from alpha_yolo_quant_torch.ops.intmath import requantize, requantize_small
 from alpha_yolo_quant_torch.ops.lut import DeviceLut
-from alpha_yolo_quant_torch.ops.nn import maxpool2d, upsample_nearest
+from alpha_yolo_quant_torch.ops.nn import (
+    conv2d_int_parts, maxpool2d, upsample_nearest,
+)
 from alpha_yolo_quant_torch.runtime import fused_ops
+from alpha_yolo_quant_torch.runtime.slabforward import (
+    SlabExec, build_slab_plan,
+)
+
+ENGINES = ("fused", "pallas", "packed")
 
 
 def device_plan(model: QuantizedModel, device) -> Dict:
@@ -98,30 +116,76 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2) if t.dim() == 4 else t
 
 
+def _check_engine(engine: str, keep_env: bool = False,
+                  plain: bool = False) -> None:
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r}: one of {ENGINES}")
+    if engine != "fused" and (keep_env or plain):
+        raise ValueError(f"keep_env and plain run on the fused engine, "
+                         f"not {engine!r}")
+
+
+def slab_plan(model: QuantizedModel, plan: Dict):
+    """The packed engine's SlabPlan, built once per device plan (a caller
+    may set ``plan["slabplan"]`` to a build_slab_plan(allow=...) hybrid)."""
+    sp = plan.get("slabplan")
+    if sp is None:
+        sp = plan["slabplan"] = build_slab_plan(model)
+    return sp
+
+
+def _pallas_conv(node, c: Dict, x: torch.Tensor, sig: DeviceLut,
+                 qmax: int) -> torch.Tensor:
+    """The pallas engine's conv: nibble-split partials, then the postconv
+    epilogue kernel over the NHWC result (channel axis 3)."""
+    hi, lo = conv2d_int_parts(x, c)
+    if node.silu:
+        return fused_ops.postconv_silu(hi, lo, c["b"], c["r1"], c["s1"],
+                                       c["r2"], c["s2"], sig, qmax, axis=3)
+    return fused_ops.postconv_plain(hi, lo, c["b"], axis=3)
+
+
 def int_forward(model: QuantizedModel, plan: Dict, x_q: torch.Tensor,
                 keep_env: bool = False, head_requant: bool = False,
-                plain: bool = False) -> Dict[str, torch.Tensor]:
+                plain: bool = False,
+                engine: str = "fused") -> Dict[str, torch.Tensor]:
     """Run the integer graph on NCHW int8 input. Returns the six head
     edges, NCHW: raw int32 accumulators, or with head_requant the
     full-quant head's first requant (box -> int8, cls -> int16).
 
+    engine: "fused", "pallas" or "packed" (module docstring).
+
     plain=True runs every conv through the kernels' plain PyTorch version
     on whatever device the input is on: the reference path that a kernel
-    run on the card is held against.
+    run on the card is held against. It and keep_env run on the fused
+    engine only.
 
     keep_env adds ``'__env__'``: every edge (NCHW) plus the golden
     oracle's intermediates ``<conv>:sigdom``, ``<label>:rescale`` and
     ``<label>:<edge>:requant``. The edges come from the same kernels as
     without it; the sigdom values are recomputed by the plain conv."""
+    _check_engine(engine, keep_env, plain)
     qmax = model.cfg.qmax
     sig = plan["sig_lut"]
     env: Dict[str, torch.Tensor] = {
         model.graph.input_edge: x_q.permute(0, 2, 3, 1).contiguous()}
     extra: Dict[str, torch.Tensor] = {}
+    slabs = (SlabExec(slab_plan(model, plan), model, plan, env, qmax)
+             if engine == "packed" else None)
     for idx, node in enumerate(model.graph.nodes):
+        if slabs is not None:
+            pre = slabs.sp.pre_ops.get(idx)
+            if pre:
+                slabs.run(pre)
+            if idx in slabs.sp.nodes:
+                slabs.run(slabs.sp.node_ops.get(idx, ()))
+                continue
         if isinstance(node, ConvNode):
             c = plan["convs"][node.name]
             x = env[node.src]
+            if engine == "pallas":
+                env[node.dst] = _pallas_conv(node, c, x, sig, qmax)
+                continue
             conv = (fused_ops.conv_plain if plain
                     else fused_ops.conv1x1 if node.kernel == 1
                     else fused_ops.conv3x3)
@@ -166,6 +230,8 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q: torch.Tensor,
         else:  # pragma: no cover
             raise TypeError(type(node))
 
+    if slabs is not None:
+        slabs.run(slabs.sp.pre_ops.get(len(model.graph.nodes), ()))
     outs = {role: _nchw(env[e]).contiguous()
             for role, e in model.graph.outputs.items()}
     if head_requant:
@@ -301,7 +367,7 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
                        dfl_w_float=None, with_nms: bool = True,
                        pad_batch_to: Optional[int] = None,
                        coalesce_requests: Optional[int] = None,
-                       plain: bool = False):
+                       plain: bool = False, engine: str = "fused"):
     """Return ``(fn, plan)``: fn maps images (NCHW float32 in [0, 1] or
     uint8, numpy or torch) to detections ``(det (B,300,6), n_det (B,))``
     on ``device``.
@@ -312,13 +378,14 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
     width for the conv stack and slice back (per-image results are batch
     independent). coalesce_requests=N: fn takes N request arrays,
     quantizes each, runs one forward over their concatenation and returns
-    one result per request. plain: convs through their plain versions
-    (see int_forward)."""
+    one result per request. plain: convs through their plain versions;
+    engine: "fused", "pallas" or "packed" (see int_forward)."""
     from alpha_yolo_quant_torch.postprocess.nms import (
         NmsParams, non_max_suppression, q_nms_params,
     )
     from alpha_yolo_quant_torch.serving import split_by_sizes
 
+    _check_engine(engine, plain=plain)
     device = torch.device(device)
     plan = device_plan(model, device)
     k = model.cfg.k
@@ -354,7 +421,8 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
         if padded:
             x_q = torch.cat((x_q, x_q.new_zeros((pad_batch_to - b,)
                                                 + x_q.shape[1:])), 0)
-        outs = int_forward(model, plan, x_q, head_requant=full, plain=plain)
+        outs = int_forward(model, plan, x_q, head_requant=full, plain=plain,
+                           engine=engine)
         if padded:
             outs = {name: t[:b] for name, t in outs.items()}
         return _post(outs)

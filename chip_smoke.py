@@ -1,21 +1,26 @@
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py            # needs one CUDA card + nvcc
 
 Phases (each one raises on failure; nothing falls back to the CPU):
   1. print the card's name and power limit; build the Hopper kernels from
      alpha_yolo_quant_torch/runtime/csrc and print the build seconds;
-  2. hold every kernel against its plain PyTorch version on the card at
-     shapes read from the yolov8n-640 graph IR (B=8), max|diff| must be 0,
-     and time both with CUDA events;
-  3. build a yolov8n K=8 full-quant 640 model with random weights from a
+  2. build a yolov8n K=8 full-quant 640 model with random weights from a
      seed, calibrated by the port's own float forward;
+  3. hold every kernel against its plain PyTorch version on the card
+     (B=8), max|diff| must be 0, and time both with CUDA events: the conv
+     kernels at shapes read from the graph IR, the postconv epilogues on
+     the nibble-split partials of a yolov8n conv, the banded slab conv on
+     six convs of the 640 model's slab plan;
   4. serve three coalesced requests (4 uint8 + 8 f32 + 4 f32 images)
-     through build_int_pipeline; every conv must launch a kernel, the
-     detections must equal the plain path's bit for bit, and one image's
-     head edges must equal the numpy int64 oracle golden_forward;
-  5. time the whole pipeline at B=128;
-then print the kernels line and, last, the device line.
+     through build_int_pipeline on each engine (fused, pallas, packed),
+     with the launch counts set to 0 just before each and read just after:
+     every conv must go through the engine's kernels, and the detections
+     must equal the plain path's bit for bit; one image's head edges must
+     equal the numpy int64 oracle golden_forward;
+  5. time the whole pipeline of each engine at B=128;
+then print the kernels line (every kernel with its launches on its path,
+error, times and bound) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -31,14 +36,29 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+_PALLAS = "alpha_yolo_quant_tpu/runtime/pallas_ops.py"
 KERNELS = {   # name -> (source in the repo, TPU kernel it replaces)
     "conv1x1": ("alpha_yolo_quant_torch/runtime/csrc/conv1x1.cu",
-                "alpha_yolo_quant_tpu/runtime/pallas_ops.py:162"),
+                f"{_PALLAS}:162"),
     "conv3x3": ("alpha_yolo_quant_torch/runtime/csrc/conv3x3.cu",
-                "alpha_yolo_quant_tpu/runtime/pallas_ops.py:213"),
+                f"{_PALLAS}:213"),
     "sigma_probe": ("alpha_yolo_quant_torch/runtime/csrc/sigma_probe.cu",
-                    "alpha_yolo_quant_tpu/runtime/pallas_ops.py:108"),
+                    f"{_PALLAS}:108"),
+    "postconv_silu": ("alpha_yolo_quant_torch/runtime/csrc/postconv.cu",
+                      f"{_PALLAS}:73"),
+    "postconv_plain": ("alpha_yolo_quant_torch/runtime/csrc/postconv.cu",
+                       f"{_PALLAS}:244"),
+    "packed_conv": ("alpha_yolo_quant_torch/runtime/csrc/packed_conv.cu",
+                    "alpha_yolo_quant_tpu/runtime/packed_conv.py:299"),
 }
+ENGINE_KERNELS = {   # kernels each serving engine launches
+    "fused": ("conv1x1", "conv3x3", "sigma_probe"),
+    "pallas": ("postconv_silu", "postconv_plain"),
+    "packed": ("packed_conv",),
+}
+# one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, int8 tensor ops/s
+HBM_BPS = 3.35e12
+INT8_OPS = 1.979e15
 
 
 def log(msg: str) -> None:
@@ -71,9 +91,35 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time the card could take, bytes at
+    the HBM rate against operations at the dense int8 tensor rate."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / INT8_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_err(got, want, label: str) -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: kernel {tuple(got.shape)} "
+                             f"{got.dtype} vs plain {tuple(want.shape)} "
+                             f"{want.dtype}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err != 0:
+        raise AssertionError(f"{label}: kernel differs from plain by {err}")
+    return err
+
+
 def edge_geometry(graph):
     """edge -> (channels, height) for a square input, walked over the IR."""
-    from alpha_yolo_quant_tpu.models.graph import (
+    from alpha_yolo_quant_torch.models.graph import (
         ConcatNode, ConvNode, MaxPoolNode, ResidualAddNode, SplitNode,
         UpsampleNode,
     )
@@ -114,6 +160,9 @@ KERNEL_CASES = [
     ("3x3 s1 wide int16", "C2F_4_bottle_2", True, True),
     ("1x1 silu wide int16", "C2F_4_conv_1", True, True),
 ]
+# (kernel, conv name): the postconv epilogues on the partials of a conv
+POSTCONV_CASES = [("postconv_silu", "Conv_P1"),
+                  ("postconv_plain", "x_result_5_down_2")]
 
 
 def random_conv_case(node, hw: int, batch: int, wide: bool, silu: bool,
@@ -148,25 +197,23 @@ def random_conv_case(node, hw: int, batch: int, wide: bool, silu: bool,
     return x, c
 
 
-def check_kernels(batch: int, image_size: int = 640, reps: int = 10):
-    """Phase 2: every kernel against its plain version on the card.
-    Returns {kernel name: {max_abs_err, ms, plain_ms, shape}} keeping the
-    largest-work case of each kernel for the timings."""
+def keep_case(res: dict, name: str, work: float, **fields) -> None:
+    """Keep, per kernel, the largest-work case for the kernels line."""
+    r = res.setdefault(name, {"max_abs_err": 0, "work": -1.0})
+    r["max_abs_err"] = max(r["max_abs_err"], fields["max_abs_err"])
+    if work > r["work"]:
+        r.update(fields, work=work)
+
+
+def check_conv_kernels(graph, sig, res, batch: int, reps: int):
+    """conv1x1 and conv3x3 against conv_plain at yolov8n-640 shapes, and
+    torch._int_mm on the 1x1 products as the library yardstick."""
     import torch
 
-    from alpha_yolo_quant_tpu.config import QuantConfig
-    from alpha_yolo_quant_tpu.models.graph import build_yolov8_graph
-    from alpha_yolo_quant_tpu.quantize.luts import sigmoid_lut
-    from alpha_yolo_quant_torch.ops.lut import DeviceLut
     from alpha_yolo_quant_torch.runtime import fused_ops
 
-    dev = torch.device("cuda")
-    graph = build_yolov8_graph(QuantConfig(model="yolov8n", k=8,
-                                           full_quant=True,
-                                           image_size=image_size))
+    dev = sig.values.device
     geo = edge_geometry(graph)
-    sig = DeviceLut(sigmoid_lut(6.0, 8), dev)
-    res = {}
     for i, (label, name, wide, silu) in enumerate(KERNEL_CASES):
         node = graph.conv_by_name(name)
         hw = geo[node.src][1]
@@ -175,83 +222,212 @@ def check_kernels(batch: int, image_size: int = 640, reps: int = 10):
         kname = "conv1x1" if node.kernel == 1 else "conv3x3"
         wrapper = getattr(fused_ops, kname)
         got = wrapper(x, c, sig)
-        want = fused_ops.conv_plain(x, c, sig, 127)
-        torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"{label}: kernel {tuple(got.shape)} "
-                                 f"{got.dtype} vs plain "
-                                 f"{tuple(want.shape)} {want.dtype}")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        err = max_err(got, fused_ops.conv_plain(x, c, sig, 127), label)
         ms = cuda_ms(lambda: wrapper(x, c, sig), reps)
         plain_ms = cuda_ms(lambda: fused_ops.conv_plain(x, c, sig, 127),
                            max(2, reps // 5))
         macs = (x.shape[0] * got.shape[1] * got.shape[2] * node.cout
                 * node.cin * node.kernel ** 2)
+        consts = [c[f] for f in ("b", "r1", "s1", "r2", "s2") if f in c]
+        bound_ms, bound_by = bound(
+            nbytes(x, got, *consts) + c["w_f64"].numel(), 2 * macs)
+        lib_ms = None
+        if node.kernel == 1:
+            m_rows = x.shape[0] * hw * hw
+            a8 = torch.randint(-127, 128, (m_rows, node.cin),
+                               dtype=torch.int8, device=dev)
+            w8 = torch.randint(-127, 128, (node.cin, node.cout),
+                               dtype=torch.int8, device=dev)
+            lib_ms = cuda_ms(lambda: torch._int_mm(a8, w8), reps)
         shape = (f"B={batch} {node.cin}->{node.cout} {node.kernel}x"
                  f"{node.kernel} s{node.stride} {hw}px "
                  f"{'int16' if wide else 'int8'} "
                  f"{'silu' if silu else 'plain'}")
-        spread = int(torch.unique(got).numel())
+        lib = "" if lib_ms is None else f" _int_mm_ms={lib_ms:.4f}"
         log(f"kernel {kname} [{label}] {name} {shape}: max_abs_err={err} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"GMAC/s={macs / ms / 1e6:.1f} distinct_out={spread}")
-        if err != 0:
-            raise AssertionError(f"{label}: kernel differs from plain by "
-                                 f"{err}")
-        r = res.setdefault(kname, {"max_abs_err": 0, "macs": -1})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if macs > r["macs"]:
-            r.update(macs=macs, ms=ms, plain_ms=plain_ms, shape=shape)
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}"
+            f"{lib} GMAC/s={macs / ms / 1e6:.1f} "
+            f"distinct_out={int(torch.unique(got).numel())}")
+        keep_case(res, kname, macs, max_abs_err=err, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=lib_ms, shape=shape)
+
+
+def check_postconv_kernels(graph, sig, res, batch: int, reps: int):
+    """postconv_silu/plain on the real nibble-split partials of a yolov8n
+    conv (NHWC, channel axis 3), against their plain versions and against
+    the whole conv's plain version."""
+    from alpha_yolo_quant_torch.ops.nn import conv2d_int_parts
+    from alpha_yolo_quant_torch.runtime import fused_ops
+
+    geo = edge_geometry(graph)
+    for i, (kname, name) in enumerate(POSTCONV_CASES):
+        node = graph.conv_by_name(name)
+        silu = kname == "postconv_silu"
+        hw = geo[node.src][1]
+        x, c = random_conv_case(node, hw, batch, False, silu, seed=200 + i,
+                                device=sig.values.device)
+        hi, lo = conv2d_int_parts(x, c)
+        consts = ((c["b"], c["r1"], c["s1"], c["r2"], c["s2"]) if silu
+                  else (c["b"],))
+        if silu:
+            def run():
+                return fused_ops.postconv_silu(hi, lo, *consts, sig,
+                                               axis=3)
+
+            def run_plain():
+                return fused_ops.postconv_silu_plain(hi, lo, *consts, sig,
+                                                     axis=3)
+        else:
+            def run():
+                return fused_ops.postconv_plain(hi, lo, c["b"], axis=3)
+
+            def run_plain():
+                return fused_ops.postconv_plain_plain(hi, lo, c["b"],
+                                                      axis=3)
+        got = run()
+        err = max_err(got, run_plain(), kname)
+        max_err(got, fused_ops.conv_plain(x, c, sig, 127),
+                f"{kname} against the whole plain conv")
+        ms = cuda_ms(run, reps)
+        plain_ms = cuda_ms(run_plain, max(2, reps // 5))
+        bound_ms, bound_by = bound(nbytes(hi, lo, got, *consts), 0)
+        shape = (f"B={batch} {node.cout}ch {geo[node.dst][1]}px NHWC "
+                 f"(partials of {name})")
+        log(f"kernel {kname} {shape}: max_abs_err={err} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"GB/s={nbytes(hi, lo, got) / ms / 1e6:.1f}")
+        keep_case(res, kname, hi.numel(), max_abs_err=err, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=None, shape=shape)
+
+
+DERIVED = ("s2e:", "s2o:", "eoe:", "eoo:")   # row/group views of a slab
+
+
+def packed_cases(sp):
+    """Six ConvOps of the slab plan: (label, op, silu). Fails if the plan
+    lacks one of the kinds."""
+    def keys(op):
+        return {k for k, _, _ in op.taps}
+
+    ops = [op for v in sp.node_ops.values() for op in v
+           if type(op).__name__ == "ConvOp"]
+    kinds = [
+        ("s1 9 taps", lambda o: len(o.taps) == 9 and len(keys(o)) == 1
+         and not next(iter(keys(o))).startswith(DERIVED)),
+        ("s2 (s2e/s2o)",
+         lambda o: any(k.startswith(DERIVED[:2]) for k in keys(o))),
+        ("down2 (eoe/eoo)",
+         lambda o: any(k.startswith(DERIVED[2:]) for k in keys(o))),
+        ("18 taps two slabs (wide)",
+         lambda o: len(o.taps) == 18 and len(keys(o)) == 2),
+        ("3-slab concat consumer", lambda o: len(keys(o)) == 3),
+    ]
+    cases = []
+    for label, pred in kinds:
+        hit = [o for o in ops if pred(o)]
+        if not hit:
+            raise AssertionError(f"the slab plan has no {label} conv")
+        cases.append((label, max(hit, key=lambda o: o.h_out * o.geom.gp2),
+                      True))
+    cases.append(("raw int32 (s1 9 taps)", cases[0][1], False))
+    return cases
+
+
+def check_packed_kernel(model, plan, res, batch: int, reps: int):
+    """packed_conv on six convs of the 640 slab plan, random int8 input
+    slabs in each conv's geometry, against packed_call_plain."""
+    import torch
+
+    from alpha_yolo_quant_torch.runtime import packed_conv as pc
+    from alpha_yolo_quant_torch.runtime.interpreter import slab_plan
+    from alpha_yolo_quant_torch.runtime.slabforward import SlabExec
+
+    sp = slab_plan(model, plan)
+    sig = plan["sig_lut"]
+    gen = torch.Generator(device=plan["device"]).manual_seed(7)
+    for label, op, silu in packed_cases(sp):
+        ex = SlabExec(sp, model, plan, {}, model.cfg.qmax)
+        for k, _, _ in op.taps:
+            base = k.split(":", 1)[1] if k.startswith(DERIVED) else k
+            if base not in ex.slabs:
+                ex.slabs[base] = torch.randint(
+                    -127, 128, (batch, sp.geoms[base].rows_ext, 128),
+                    generator=gen, dtype=torch.int8, device=plan["device"])
+        x_slabs, taps = ex.conv_inputs(op)
+        e = dict(ex.entry(op), silu=silu)
+        args = (x_slabs, taps, e, op.geom.gp2, op.h_out, sig)
+        got = pc.packed_call(*args)
+        err = max_err(got, pc.packed_call_plain(*args), label)
+        ms = cuda_ms(lambda: pc.packed_call(*args), reps)
+        plain_ms = cuda_ms(lambda: pc.packed_call_plain(*args),
+                           max(2, reps // 5))
+        m = op.h_out * op.geom.gp2
+        nnz = sum(int(np.count_nonzero(op.wlist[t])) for _, t, _ in taps)
+        macs = batch * m * nnz
+        bound_ms, bound_by = bound(
+            nbytes(*x_slabs, got, e["w_packed"], e["b"], e["r1"], e["s1"],
+                   e["r2"], e["s2"]), 2 * macs)
+        g = op.geom
+        shape = (f"B={batch} {op.name} {len(taps)} taps over "
+                 f"{len(x_slabs)} slabs, c_slot {g.c_slot} p={g.p} "
+                 f"{g.h}px m={m} {'silu int8' if silu else 'raw int32'}")
+        log(f"kernel packed_conv [{label}] {shape}: max_abs_err={err} "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"useful GMAC/s={macs / ms / 1e6:.1f}")
+        keep_case(res, "packed_conv", macs, max_abs_err=err, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=None, shape=shape)
+
+
+def check_kernels(model, plan, batch: int, reps: int = 10):
+    """Phase 3: every kernel against its plain version on the card.
+    Returns {kernel name: the fields of its kernels-line entry}."""
+    from alpha_yolo_quant_torch.runtime import fused_ops
+
+    res: dict = {}
+    graph, sig = model.graph, plan["sig_lut"]
+    check_conv_kernels(graph, sig, res, batch, reps)
     got = fused_ops.sigma_probe(sig)
-    want = fused_ops.sigma_probe_plain(sig)
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max())
+    err = max_err(got, fused_ops.sigma_probe_plain(sig), "sigma_probe")
     corr = fused_ops.sigma_corrections(sig)
     ms = cuda_ms(lambda: fused_ops.sigma_probe(sig), 100)
     plain_ms = cuda_ms(lambda: fused_ops.sigma_probe_plain(sig), 100)
+    bound_ms, bound_by = bound(nbytes(sig.values, got), 0)
     log(f"kernel sigma_probe [255-entry sigmoid LUT]: max_abs_err={err} "
-        f"corrections={corr} ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    if err != 0 or corr:
+        f"corrections={corr} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.6f}")
+    if corr:
         raise AssertionError("sigma_probe differs from Lut.values")
-    res["sigma_probe"] = {"max_abs_err": err, "ms": ms,
-                          "plain_ms": plain_ms,
-                          "shape": f"{sig.values.numel()} entries"}
+    keep_case(res, "sigma_probe", 0, max_abs_err=err, ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=None, shape=f"{sig.values.numel()} entries")
+    check_postconv_kernels(graph, sig, res, batch, reps)
+    check_packed_kernel(model, plan, res, batch, reps)
     return res
 
 
-def build_model(image_size: int, device):
-    """Phase 3: yolov8n K=8 full-quant, random weights from seed 0,
-    calibrated by the port's float forward on two seeded images."""
-    from alpha_yolo_quant_tpu.config import QuantConfig
-    from alpha_yolo_quant_tpu.models.graph import build_yolov8_graph
-    from alpha_yolo_quant_tpu.models.params import init_params
-    from alpha_yolo_quant_torch.quantize.calibrate import (
-        collect_stats, reduce_stats,
-    )
-    from alpha_yolo_quant_torch.quantize.transform import (
-        build_quantized_model,
-    )
-
-    cfg = QuantConfig(model="yolov8n", k=8, full_quant=True,
-                      image_size=image_size)
-    graph = build_yolov8_graph(cfg)
-    params = init_params(graph, seed=0)
-    rng = np.random.default_rng(1)
-    calib = rng.uniform(0, 1, (2, 3, image_size, image_size)).astype(
-        np.float32)
-    max_a = reduce_stats(collect_stats(graph, params, [calib], device),
-                         "max", cfg.k)
-    return build_quantized_model(graph, params, max_a, cfg)
+def expected_launches(model, engine: str, n_slab: int) -> dict:
+    """The launches one forward must make on each engine."""
+    convs = model.graph.convs()
+    n_silu = sum(1 for n in convs if n.silu)
+    if engine == "pallas":   # two partial convs per conv, then an epilogue
+        return {"conv": 2 * len(convs), "postconv_silu": n_silu,
+                "postconv_plain": len(convs) - n_silu}
+    if engine == "packed":
+        return {"conv": len(convs) - n_slab, "packed_conv": n_slab}
+    return {"conv": len(convs)}
 
 
 def serve(model, device):
-    """Phase 4: three coalesced requests through the kernel path, counted;
-    then the same requests through the plain path on the card."""
+    """Phase 4: three coalesced requests through each engine, counted;
+    the detections against the plain path on the card."""
     import torch
 
     from alpha_yolo_quant_torch.runtime import fused_ops
     from alpha_yolo_quant_torch.runtime.interpreter import (
-        build_int_pipeline,
+        build_int_pipeline, slab_plan,
     )
 
     s = model.cfg.image_size
@@ -260,39 +436,49 @@ def serve(model, device):
             rng.uniform(0, 1, (8, 3, s, s)).astype(np.float32),
             rng.uniform(0, 1, (4, 3, s, s)).astype(np.float32)]
     reqs = [torch.as_tensor(r, device=device) for r in reqs]
-    torch.cuda.synchronize()
-    fused_ops.reset_counts()
-    fn, plan = build_int_pipeline(model, device, coalesce_requests=3)
-    got = fn(*reqs)
-    torch.cuda.synchronize()
-    launches = dict(fused_ops.LAUNCHES)
-    n_convs = len(model.graph.convs())
-    conv_launches = launches["conv1x1"] + launches["conv3x3"]
-    log(f"serve: 3 coalesced requests (4 uint8 + 8 f32 + 4 f32 images, "
-        f"{s}px) -> launches {launches}; {conv_launches} conv launches "
-        f"for {n_convs} convs in one forward")
-    if conv_launches != n_convs or min(launches.values()) < 1:
-        raise AssertionError("the serving path did not run every conv "
-                             "through a kernel")
     plain_fn, _ = build_int_pipeline(model, device, coalesce_requests=3,
                                      plain=True)
     want = plain_fn(*reqs)
     torch.cuda.synchronize()
-    total = 0
-    for i, ((det, n), (det_p, n_p)) in enumerate(zip(got, want)):
-        b = reqs[i].shape[0]
-        if det.shape != (b, 300, 6) or n.shape != (b,):
-            raise AssertionError(f"request {i}: shapes {tuple(det.shape)} "
-                                 f"{tuple(n.shape)}")
-        if not bool(torch.isfinite(det).all()) or int(n.max()) > 300:
-            raise AssertionError(f"request {i}: non-finite detections")
-        if not (torch.equal(det, det_p) and torch.equal(n, n_p)):
-            raise AssertionError(f"request {i}: kernel path detections "
-                                 "differ from the plain path")
-        total += int(n.sum())
-    log(f"serve: detections equal the plain path bit for bit "
-        f"({total} detections over 16 images, all finite)")
-    return launches, plan, reqs
+    launches, plans = {}, {}
+    for engine in ("fused", "pallas", "packed"):
+        torch.cuda.synchronize()
+        fused_ops.reset_counts()
+        fn, plan = build_int_pipeline(model, device, coalesce_requests=3,
+                                      engine=engine)
+        got = fn(*reqs)
+        torch.cuda.synchronize()
+        counts = dict(fused_ops.LAUNCHES)
+        n_slab = slab_plan(model, plan).n_convs if engine == "packed" else 0
+        exp = expected_launches(model, engine, n_slab)
+        seen = {"conv": counts["conv1x1"] + counts["conv3x3"],
+                **{k: counts[k] for k in exp if k != "conv"}}
+        log(f"serve [{engine}]: 3 coalesced requests (4 uint8 + 8 f32 + 4 "
+            f"f32 images, {s}px) -> launches {counts}; expected per "
+            f"forward {exp}")
+        if seen != exp or min(counts[k] for k in
+                              ENGINE_KERNELS[engine]) < 1:
+            raise AssertionError(f"{engine}: the serving path did not run "
+                                 f"every conv through its kernels")
+        total = 0
+        for i, ((det, n), (det_p, n_p)) in enumerate(zip(got, want)):
+            b = reqs[i].shape[0]
+            if det.shape != (b, 300, 6) or n.shape != (b,):
+                raise AssertionError(f"{engine} request {i}: shapes "
+                                     f"{tuple(det.shape)} {tuple(n.shape)}")
+            if not bool(torch.isfinite(det).all()) or int(n.max()) > 300:
+                raise AssertionError(f"{engine} request {i}: non-finite "
+                                     "detections")
+            if not (torch.equal(det, det_p) and torch.equal(n, n_p)):
+                raise AssertionError(f"{engine} request {i}: detections "
+                                     "differ from the plain path")
+            total += int(n.sum())
+        log(f"serve [{engine}]: detections equal the plain path (and so "
+            f"every other engine) bit for bit ({total} detections over 16 "
+            f"images, all finite)")
+        launches.update({k: counts[k] for k in ENGINE_KERNELS[engine]})
+        plans[engine] = plan
+    return launches, plans, reqs
 
 
 def golden_heads(model, plan, x_u8):
@@ -300,7 +486,7 @@ def golden_heads(model, plan, x_u8):
     the numpy int64 oracle on the host."""
     import torch
 
-    from alpha_yolo_quant_tpu.runtime.golden import golden_forward
+    from alpha_yolo_quant_torch.runtime.golden import golden_forward
     from alpha_yolo_quant_torch.runtime.interpreter import (
         int_forward, quantize_input,
     )
@@ -319,7 +505,7 @@ def golden_heads(model, plan, x_u8):
         f"equal golden_forward (numpy int64 on the host, {sec:.1f} s)")
 
 
-def time_pipeline(model, device, card: str, batch: int = 128,
+def time_pipeline(model, device, card: str, engine: str, batch: int = 128,
                   reps: int = 3):
     """Phase 5: whole pipeline (uint8 images on the card -> detections)
     at B=128, host clock around synchronized batches after a warm-up."""
@@ -332,7 +518,7 @@ def time_pipeline(model, device, card: str, batch: int = 128,
     s = model.cfg.image_size
     x = torch.as_tensor(np.random.default_rng(3).integers(
         0, 256, (batch, 3, s, s)).astype(np.uint8), device=device)
-    fn, _ = build_int_pipeline(model, device)
+    fn, _ = build_int_pipeline(model, device, engine=engine)
     fn(x)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -341,8 +527,8 @@ def time_pipeline(model, device, card: str, batch: int = 128,
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
     fwd = cuda_ms(lambda: fn(x), 1, warmup=0)
-    log(f"pipeline B={batch} {s}px yolov8n K=8 full-quant uint8 in -> "
-        f"detections: {ms:.2f} ms/batch, {batch / ms * 1e3:.1f} img/s "
+    log(f"pipeline [{engine}] B={batch} {s}px yolov8n K=8 full-quant uint8 "
+        f"in -> detections: {ms:.2f} ms/batch, {batch / ms * 1e3:.1f} img/s "
         f"(CUDA events: {fwd:.2f} ms) on {card}")
     return ms
 
@@ -353,7 +539,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
                          "the card and has no CPU path")
+    from alpha_yolo_quant_torch.engine_profile import build_model
     from alpha_yolo_quant_torch.runtime import _build
+    from alpha_yolo_quant_torch.runtime.interpreter import device_plan
 
     dev = torch.device("cuda")
     card = card_line()
@@ -367,19 +555,22 @@ def main() -> int:
             if "registers" in ln:
                 log(f"ptxas {name}: {ln.strip()}")
 
-    kres = check_kernels(batch=8)
     t0 = time.perf_counter()
-    model = build_model(640, dev)
+    model = build_model(640, dev)   # the model engine_profile measures
     log(f"model: yolov8n K=8 full-quant 640, random weights seed 0, "
         f"port calibration ({time.perf_counter() - t0:.1f} s)")
-    launches, plan, reqs = serve(model, dev)
-    golden_heads(model, plan, reqs[0][:1])
-    time_pipeline(model, dev, card)
+    kres = check_kernels(model, device_plan(model, dev), batch=8)
+    launches, plans, reqs = serve(model, dev)
+    golden_heads(model, plans["fused"], reqs[0][:1])
+    for engine in ("fused", "pallas", "packed"):
+        time_pipeline(model, dev, card, engine)
     log(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=KERNELS[k][0],
              replaces=KERNELS[k][1], launches=launches[k],
              max_abs_err=r["max_abs_err"], ms=r["ms"],
-             plain_ms=r["plain_ms"], shape=r["shape"])
+             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], library_ms=r["library_ms"],
+             shape=r["shape"])
         for k, r in kres.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

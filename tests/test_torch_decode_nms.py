@@ -1,5 +1,7 @@
 """The PyTorch port's head decode and NMS against the JAX package on the
-same inputs. Bit-exact unless a test states its tolerance."""
+same inputs. Bit-exact unless a test states its tolerance. Port functions
+take the port's model, JAX functions the JAX model, both built from the
+same params and calibration."""
 
 import numpy as np
 import pytest
@@ -10,22 +12,16 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from alpha_yolo_quant_tpu.config import QuantConfig
 from alpha_yolo_quant_tpu.models import head as jhead
-from alpha_yolo_quant_tpu.models.graph import build_yolov8_graph
-from alpha_yolo_quant_tpu.models.params import init_params
 from alpha_yolo_quant_tpu.postprocess import nms as jnms
-from alpha_yolo_quant_tpu.quantize.transform import build_quantized_model
 from alpha_yolo_quant_tpu.runtime import interpreter as jinterp
 from alpha_yolo_quant_tpu.runtime.golden import (
     golden_forward, head_intermediates_np,
 )
 from alpha_yolo_quant_torch.models import head as thead
 from alpha_yolo_quant_torch.postprocess import nms as tnms
-from alpha_yolo_quant_torch.quantize.calibrate import (
-    collect_stats, reduce_stats,
-)
 from alpha_yolo_quant_torch.runtime import interpreter as tinterp
+from test_torch_model_build import build_pair
 
 RNG = np.random.default_rng(5)
 
@@ -36,12 +32,8 @@ def _t(a):
 
 @pytest.fixture(scope="module")
 def full_model():
-    cfg = QuantConfig(model="yolov8n", k=8, full_quant=True, image_size=64)
-    graph = build_yolov8_graph(cfg)
-    params = init_params(graph, seed=1)
-    calib = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
-    max_a = reduce_stats(collect_stats(graph, params, [calib]), "max", 8)
-    return build_quantized_model(graph, params, max_a, cfg)
+    """(port model, JAX model): yolov8n K=8 full quant at 64 px."""
+    return build_pair(k=8, full_quant=True, seed=1, calib_seed=5)
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +41,7 @@ def head_outs(full_model):
     """Random head accumulators at the model's shapes, wide enough that
     the requants, softmax and class max see their whole ranges."""
     outs = {}
-    for role in full_model.graph.outputs:
+    for role in full_model[0].graph.outputs:
         level = {"p3": 8, "p4": 4, "p5": 2}[role[:2]]
         c = 64 if role.endswith("box") else 80
         outs[role] = RNG.integers(-2 ** 22, 2 ** 22, (3, c, level, level),
@@ -57,9 +49,10 @@ def head_outs(full_model):
     return outs
 
 
-def _requant_heads(model, outs):
-    jplan = jinterp.device_plan(model)
-    tplan = tinterp.device_plan(model, "cpu")
+def _requant_heads(models, outs):
+    tmodel, jmodel = models
+    jplan = jinterp.device_plan(jmodel)
+    tplan = tinterp.device_plan(tmodel, "cpu")
     pre = {}
     for role, v in outs.items():
         level, kind = role.split("_")
@@ -72,12 +65,13 @@ def _requant_heads(model, outs):
 
 
 def test_serving_decode_equals_jax(full_model, head_outs):
+    tmodel, jmodel = full_model
     jplan, tplan, pre = _requant_heads(full_model, head_outs)
     want = jax.jit(lambda o: jinterp.decode_full_quant(
-        full_model, jplan, o, sigmoid_cls=False, reduce_cls=True,
+        jmodel, jplan, o, sigmoid_cls=False, reduce_cls=True,
         pre_requantized=True))({k: jnp.asarray(v) for k, v in pre.items()})
     got = tinterp.decode_full_quant(
-        full_model, tplan, {k: _t(v) for k, v in pre.items()},
+        tmodel, tplan, {k: _t(v) for k, v in pre.items()},
         sigmoid_cls=False, reduce_cls=True, pre_requantized=True)
     for g, w, name in zip(got, want, ("dbox", "conf", "cid")):
         assert g.dtype == torch.float32, name
@@ -89,12 +83,13 @@ def test_serving_decode_equals_jax(full_model, head_outs):
 def test_dense_decode_equals_jax(full_model, head_outs, sigmoid_cls):
     """The (B, 84, N) decode from raw accumulators, f32 dist2bbox
     included."""
+    tmodel, jmodel = full_model
     jplan, tplan, _ = _requant_heads(full_model, head_outs)
     want = np.asarray(jinterp.decode_full_quant(
-        full_model, jplan, {k: jnp.asarray(v) for k, v in head_outs.items()},
+        jmodel, jplan, {k: jnp.asarray(v) for k, v in head_outs.items()},
         sigmoid_cls=sigmoid_cls))
     got = tinterp.decode_full_quant(
-        full_model, tplan, {k: _t(v) for k, v in head_outs.items()},
+        tmodel, tplan, {k: _t(v) for k, v in head_outs.items()},
         sigmoid_cls=sigmoid_cls).numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -103,7 +98,7 @@ def test_dfl_probs_equal_float64_truncation(full_model, head_outs):
     """The integer floor (127*e)//sum equals the reference's float64
     truncation (golden head_intermediates_np)."""
     _, tplan, _ = _requant_heads(full_model, head_outs)
-    it = head_intermediates_np(full_model, head_outs)
+    it = head_intermediates_np(full_model[1], head_outs)
     box = torch.cat([_t(it["levels"][lv]["bq"]).reshape(3, 64, -1)
                      for lv in ("p3", "p4", "p5")], 2)
     p = tinterp._dfl_softmax_probs(box.reshape(3, 4, 16, -1), 2,
@@ -140,19 +135,21 @@ def test_decode_float_equals_jax_within_f32_rounding():
 
 
 def test_dequantize_heads_equals_jax(full_model, head_outs):
-    want = jinterp.dequantize_heads(full_model, {k: jnp.asarray(v) for k, v
-                                                 in head_outs.items()})
-    got = thead.dequantize_heads(full_model, {k: _t(v) for k, v
-                                              in head_outs.items()})
+    tmodel, jmodel = full_model
+    want = jinterp.dequantize_heads(jmodel, {k: jnp.asarray(v) for k, v
+                                             in head_outs.items()})
+    got = thead.dequantize_heads(tmodel, {k: _t(v) for k, v
+                                          in head_outs.items()})
     for role in want:
         np.testing.assert_array_equal(got[role].numpy(),
                                       np.asarray(want[role]))
 
 
 def test_cls_int_conf_threshold_equals_jax(full_model):
+    tmodel, jmodel = full_model
     for thr in (1, 8192, 20000, 32767):
-        assert tinterp.cls_int_conf_threshold(full_model, thr) \
-            == jinterp.cls_int_conf_threshold(full_model, thr)
+        assert tinterp.cls_int_conf_threshold(tmodel, thr) \
+            == jinterp.cls_int_conf_threshold(jmodel, thr)
 
 
 # ------------------------------------------------------------------ NMS
@@ -302,12 +299,13 @@ def test_sort_keys_and_box_helpers_equal_jax():
 def test_golden_decode_consistency(full_model):
     """Sanity: the full-quant decode of a real forward is finite and the
     class plane is in 16-bit sigmoid units."""
+    tmodel, jmodel = full_model
     x = RNG.uniform(0, 1, (1, 3, 64, 64)).astype(np.float32)
-    env = golden_forward(full_model, x)
-    plan = tinterp.device_plan(full_model, "cpu")
+    env = golden_forward(jmodel, x)
+    plan = tinterp.device_plan(tmodel, "cpu")
     preds = tinterp.decode_full_quant(
-        full_model, plan, {r: _t(env[r]).to(torch.int32)
-                           for r in full_model.graph.outputs})
+        tmodel, plan, {r: _t(env[r]).to(torch.int32)
+                       for r in tmodel.graph.outputs})
     assert preds.shape == (1, 84, 84) and torch.isfinite(preds).all()
     assert 0 <= float(preds[:, 4:].min()) and float(preds[:, 4:].max()) \
         <= 32767

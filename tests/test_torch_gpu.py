@@ -1,10 +1,10 @@
 """The PyTorch port's Hopper kernels on a CUDA card: each kernel against its
-plain version, and the 64-px pipeline on the card against the CPU run and
-the numpy int64 oracle. Bit-exact.
+plain version, and the 64-px pipeline on the card, on every engine,
+against the CPU run and the numpy int64 oracle. Bit-exact.
 
-These tests need a card and nvcc and skip without them. They import no
-JAX, so they also run where JAX is not installed, without the repo's
-conftest.py (which imports jax):
+These tests need a card and nvcc and skip without them. They import
+neither JAX nor the JAX package, so they also run where JAX is not
+installed, without the repo's conftest.py (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
@@ -13,17 +13,19 @@ import numpy as np
 import pytest
 import torch
 
-from alpha_yolo_quant_tpu.config import QuantConfig
-from alpha_yolo_quant_tpu.models.graph import build_yolov8_graph
-from alpha_yolo_quant_tpu.models.params import init_params
-from alpha_yolo_quant_tpu.quantize.luts import sigmoid_lut
-from alpha_yolo_quant_tpu.runtime.golden import golden_forward
+from alpha_yolo_quant_torch.config import QuantConfig
+from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
+from alpha_yolo_quant_torch.models.params import init_params
 from alpha_yolo_quant_torch.ops.lut import DeviceLut
+from alpha_yolo_quant_torch.ops.nn import conv2d_int_parts
 from alpha_yolo_quant_torch.quantize.calibrate import (
     collect_stats, reduce_stats,
 )
+from alpha_yolo_quant_torch.quantize.luts import sigmoid_lut
 from alpha_yolo_quant_torch.quantize.transform import build_quantized_model
 from alpha_yolo_quant_torch.runtime import fused_ops
+from alpha_yolo_quant_torch.runtime import packed_conv as pc
+from alpha_yolo_quant_torch.runtime.golden import golden_forward
 from alpha_yolo_quant_torch.runtime.interpreter import (
     build_int_pipeline, device_plan, int_forward, quantize_input,
 )
@@ -81,16 +83,128 @@ def test_sigma_probe_returns_the_table(cuda):
     assert fused_ops.sigma_corrections(sig) == ()
 
 
-def test_pipeline_on_card_equals_cpu_and_golden(cuda):
-    cfg = QuantConfig(model="yolov8n", k=8, full_quant=True, image_size=64)
+@pytest.mark.parametrize("silu", [True, False], ids=["silu", "plain"])
+@pytest.mark.parametrize("axis", [1, 3], ids=["nchw", "nhwc"])
+def test_postconv_kernel_equals_plain(cuda, silu, axis):
+    """K3/K4 on the real nibble-split partials of a wide-input conv,
+    ragged element count, channel axis 1 (the JAX layout) or 3."""
+    rng = np.random.default_rng(axis + 2 * silu)
+    x = torch.as_tensor(rng.integers(-381, 382, (3, 13, 11, 20)),
+                        dtype=torch.int16, device=cuda)
+    w = rng.integers(-127, 128, (24, 20, 3, 3))
+    b = rng.integers(-2 ** 15, 2 ** 15, 24)
+    r1, r2 = rng.integers(64, 256, 24), rng.integers(64, 256, 24)
+    s1, s2 = rng.integers(18, 24, 24), rng.integers(26, 32, 24)
+    c = fused_ops.conv_entry(w, b, 1, 1, silu, cuda, r1=r1, s1=s1, r2=r2,
+                             s2=s2)
+    hi, lo = conv2d_int_parts(x, c)
+    if axis == 1:
+        hi, lo = (t.permute(0, 3, 1, 2).contiguous() for t in (hi, lo))
+    sig = DeviceLut(sigmoid_lut(6.0, 8), cuda)
+    name = "postconv_silu" if silu else "postconv_plain"
+    before = fused_ops.LAUNCHES[name]
+    if silu:
+        consts = [c[f] for f in ("b", "r1", "s1", "r2", "s2")]
+        got = fused_ops.postconv_silu(hi, lo, *consts, sig, axis=axis)
+        want = fused_ops.postconv_silu_plain(hi, lo, *consts, sig,
+                                             axis=axis)
+    else:
+        got = fused_ops.postconv_plain(hi, lo, c["b"], axis=axis)
+        want = fused_ops.postconv_plain_plain(hi, lo, c["b"], axis=axis)
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES[name] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _packed_lanes(rng, plan, silu):
+    cout = plan.cout
+    bias = pc.pack_lane_const(rng.integers(-900, 900, cout), plan)
+    if not silu:
+        z = pc.pack_lane_const(np.zeros(cout), plan)
+        o = pc.pack_lane_const(np.ones(cout), plan, fill=1)
+        return bias, z, o, z, o
+    s1 = rng.integers(18, 22, cout)
+    return (bias, pc.pack_lane_const(rng.integers(64, 256, cout), plan),
+            pc.pack_lane_const(s1, plan, fill=1),
+            pc.pack_lane_const(rng.integers(64, 256, cout), plan),
+            pc.pack_lane_const(s1 + 7, plan, fill=1))
+
+
+# (kind, cin, cout, hw, silu): stride 1 (one slab, and the wide two-slab
+# 18-tap form), stride 2 over even/odd row blocks, the down2 1x1 over
+# three wide even/odd part pairs; SiLU (int8) and raw (int32) epilogues
+PACKED_CASES = [("s1", 16, 16, 40, True), ("s1", 64, 64, 24, False),
+                ("s1_wide", 32, 32, 20, True), ("s2", 16, 32, 40, True),
+                ("s2", 64, 128, 16, False), ("down2", 48, 32, 24, True)]
+
+
+@pytest.mark.parametrize("case", PACKED_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}-{c[3]}px-"
+                              f"{'silu' if c[4] else 'raw'}"
+                              for c in PACKED_CASES])
+def test_packed_conv_kernel_equals_plain(cuda, case):
+    kind, cin, cout, hw, silu = case
+    rng = np.random.default_rng(cin * 7 + hw)
+    sig = DeviceLut(sigmoid_lut(6.0, 8), cuda)
+    amax = 381 if kind == "down2" else 254 if kind == "s1_wide" else 127
+    x = rng.integers(-amax, amax + 1, (3, hw, hw, cin))
+    parts, rem = [], x
+    while len(parts) < -(-amax // 127):
+        parts.append(np.clip(rem, -127, 127))
+        rem = rem - parts[-1]
+    parts = [torch.as_tensor(p, device=cuda) for p in parts]
+    if kind == "down2":
+        plan = pc.make_down2_plan(cin, cout, hw)
+        mats = pc.down2_weight_mats(
+            rng.integers(-127, 128, (cout, cin, 1, 1)), plan)
+        slabs = [s for p in parts for s in pc.pack_tensor_down2(p, plan)]
+        run = pc.packed_conv_down2
+        args = (slabs, mats, *_packed_lanes(rng, plan, silu), plan, hw)
+    else:
+        plan = pc.make_plan(cin, cout, 2 if kind == "s2" else 1, hw)
+        mats = pc.packed_weight_mats(
+            rng.integers(-127, 128, (cout, cin, 3, 3)), plan)
+        lanes = _packed_lanes(rng, plan, silu)
+        if kind == "s2":
+            run = pc.packed_conv_s2
+            args = (*pc.pack_tensor_s2(parts[0], plan), mats, *lanes, plan,
+                    hw)
+        else:
+            run = pc.packed_conv_slab
+            args = (pc.pack_tensor(parts[0], plan), mats, *lanes, plan, hw)
+    kw = dict(sig=sig, silu=silu)
+    if kind == "s1_wide":
+        kw["x_slab2"] = pc.pack_tensor(parts[1], plan)
+    before = fused_ops.LAUNCHES["packed_conv"]
+    got = run(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES["packed_conv"] == before + 1
+    cpu = [[t.cpu() for t in a] if isinstance(a, list)
+           else a.cpu() if torch.is_tensor(a) else a for a in args]
+    kw_cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+    kw_cpu["sig"] = DeviceLut(sigmoid_lut(6.0, 8), "cpu")
+    want = run(*cpu, **kw_cpu)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+def _card_model(full_quant=True):
+    cfg = QuantConfig(model="yolov8n", k=8, full_quant=full_quant,
+                      image_size=64)
     graph = build_yolov8_graph(cfg)
     params = init_params(graph, seed=0)
-    rng = np.random.default_rng(0)
-    calib = rng.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
-    model = build_quantized_model(
-        graph, params, reduce_stats(collect_stats(graph, params, [calib])),
-        cfg)
-    x = rng.uniform(0, 1, (4, 3, 64, 64)).astype(np.float32)
+    calib = np.random.default_rng(0).uniform(0, 1, (2, 3, 64, 64)).astype(
+        np.float32)
+    return build_quantized_model(
+        graph, params,
+        reduce_stats(collect_stats(graph, params, [calib], "cpu")), cfg)
+
+
+def test_pipeline_on_card_equals_cpu_and_golden(cuda):
+    model = _card_model()
+    graph = model.graph
+    x = np.random.default_rng(1).uniform(0, 1, (4, 3, 64, 64)).astype(
+        np.float32)
     fused_ops.reset_counts()
     det, n = build_int_pipeline(model, cuda)[0](torch.as_tensor(x,
                                                                device=cuda))
@@ -105,3 +219,21 @@ def test_pipeline_on_card_equals_cpu_and_golden(cuda):
     for role in graph.outputs:
         np.testing.assert_array_equal(
             outs[role].cpu().numpy().astype(np.int64), env[role])
+
+
+@pytest.mark.parametrize("engine", ["pallas", "packed"])
+def test_engine_on_card_equals_cpu(cuda, engine):
+    """The pallas and packed engines on the card launch their kernels and
+    give the CPU run's detections."""
+    model = _card_model()
+    x = np.random.default_rng(2).uniform(0, 1, (3, 3, 64, 64)).astype(
+        np.float32)
+    fused_ops.reset_counts()
+    det, n = build_int_pipeline(model, cuda, engine=engine)[0](
+        torch.as_tensor(x, device=cuda))
+    torch.cuda.synchronize()
+    kernels = (("postconv_silu", "postconv_plain") if engine == "pallas"
+               else ("packed_conv",))
+    assert all(fused_ops.LAUNCHES[k] > 0 for k in kernels)
+    det_c, n_c = build_int_pipeline(model, "cpu")[0](x)
+    assert torch.equal(det.cpu(), det_c) and torch.equal(n.cpu(), n_c)

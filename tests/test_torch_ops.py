@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import torch
 
 from alpha_yolo_quant_tpu.ops import intmath as jim
-from alpha_yolo_quant_tpu.quantize.luts import exponent_lut, sigmoid_lut
+from alpha_yolo_quant_tpu.quantize import luts as jluts
 from alpha_yolo_quant_tpu.quantize.primitives import (
     derive_rescale_shift, requantize_np,
 )
@@ -21,6 +21,7 @@ from alpha_yolo_quant_torch.ops.lut import DeviceLut
 from alpha_yolo_quant_torch.ops.nn import (
     conv2d_int_exact, maxpool2d, upsample_nearest,
 )
+from alpha_yolo_quant_torch.quantize import luts as tluts
 from alpha_yolo_quant_torch.runtime import fused_ops
 
 RNG = np.random.default_rng(2024)
@@ -139,13 +140,18 @@ def test_maxpool_and_upsample_equal_golden(nhwc):
     np.testing.assert_array_equal(up.numpy(), want_up)
 
 
-@pytest.mark.parametrize("lut", [sigmoid_lut(6.0, 8), sigmoid_lut(7.0, 4),
-                                 sigmoid_lut(12.0, 16),
-                                 exponent_lut(14.8264799118042, 8)],
+@pytest.mark.parametrize("lut", [("sigmoid_lut", 6.0, 8),
+                                 ("sigmoid_lut", 7.0, 4),
+                                 ("sigmoid_lut", 12.0, 16),
+                                 ("exponent_lut", 14.8264799118042, 8)],
                          ids=["sig8", "sig4", "sig16", "exp8"])
 def test_lut_table_read_equals_apply_np(lut):
+    """The port's table (its own luts module) read on a device equals the
+    JAX package's Lut.apply_np."""
+    ctor, max_val, bits = lut
+    d = DeviceLut(getattr(tluts, ctor)(max_val, bits), "cpu")
+    lut = getattr(jluts, ctor)(max_val, bits)
     x = np.arange(lut.lo - 40, lut.hi + 41)
-    d = DeviceLut(lut, "cpu")
     np.testing.assert_array_equal(d.apply(_t(x)).numpy(), lut.apply_np(x))
     inside = np.arange(lut.lo, lut.hi + 1)
     np.testing.assert_array_equal(d.apply_clipped(_t(inside)).numpy(),
@@ -165,7 +171,8 @@ def test_pack_weights_layout():
 # -- the kernels' plain versions against the JAX Pallas kernels (interpret
 # mode on CPU: each call recompiles, so these stay few and small) ----------
 
-SIG = sigmoid_lut(6.0, 8)
+SIG = jluts.sigmoid_lut(6.0, 8)      # the JAX kernels' table
+T_SIG = tluts.sigmoid_lut(6.0, 8)    # the port's copy of it
 
 
 @pytest.fixture(scope="module")
@@ -181,7 +188,7 @@ def test_sigma_corrections_equal_jax_probe(jax_corrections):
     """Both probes return fixups against Lut.values: the JAX kernel's
     arithmetic sigmoid needs a few, each one a table entry; the port's
     table read needs none, and its probe returns the table itself."""
-    d = DeviceLut(SIG, "cpu")
+    d = DeviceLut(T_SIG, "cpu")
     assert fused_ops.sigma_corrections(d) == ()
     np.testing.assert_array_equal(fused_ops.sigma_probe(d).numpy(),
                                   SIG.values)
@@ -210,7 +217,7 @@ def test_conv_plain_equals_jax_fused_kernel(case, jax_corrections):
     s2 = RNG.integers(24, 30, cout)
     c = fused_ops.conv_entry(w, b, stride, kern // 2, silu, "cpu", r1=r1,
                              s1=s1, r2=r2, s2=s2)
-    sig = DeviceLut(SIG, "cpu")
+    sig = DeviceLut(T_SIG, "cpu")
     wrapper = fused_ops.conv1x1 if kern == 1 else fused_ops.conv3x3
     got = wrapper(_t(x).to(torch.int8), c, sig, 127).numpy()
 

@@ -1,6 +1,8 @@
 """The PyTorch port's serving pipeline and calibration against the JAX
-package at the 64-px scale, and the port's independence from JAX."""
+package at the 64-px scale, and the port's independence from JAX and from
+the JAX package."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -22,28 +24,29 @@ from alpha_yolo_quant_tpu.models.params import init_params
 from alpha_yolo_quant_tpu.quantize import calibrate as jcal
 from alpha_yolo_quant_tpu.quantize.transform import build_quantized_model
 from alpha_yolo_quant_tpu.runtime import interpreter as jinterp
+from alpha_yolo_quant_torch.config import QuantConfig as TConfig
 from alpha_yolo_quant_torch.models.forward import forward_float
+from alpha_yolo_quant_torch.models.graph import (
+    build_yolov8_graph as t_build_graph,
+)
 from alpha_yolo_quant_torch.models.params import params_to_torch
 from alpha_yolo_quant_torch.quantize import calibrate as tcal
 from alpha_yolo_quant_torch.runtime.interpreter import build_int_pipeline
+from test_torch_model_build import build_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RNG = np.random.default_rng(17)
 
 
 def _model(full=True, k=8, seed=3):
-    cfg = QuantConfig(model="yolov8n", k=k, full_quant=full, image_size=64)
-    graph = build_yolov8_graph(cfg)
-    params = init_params(graph, seed=seed)
-    calib = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
-    max_a = tcal.reduce_stats(tcal.collect_stats(graph, params, [calib]),
-                              "max", k)
-    return build_quantized_model(graph, params, max_a, cfg), params
+    """(port model, JAX model) from the same params and calibration."""
+    return build_pair(k=k, full_quant=full, seed=seed,
+                      calib_seed=int(RNG.integers(1 << 30)))
 
 
 @pytest.fixture(scope="module")
 def full_model():
-    return _model()[0]
+    return _model()
 
 
 def _assert_dets_equal(got, want, msg=""):
@@ -61,22 +64,24 @@ def test_pipeline_equals_jax(full_model, dtype):
         x = RNG.uniform(0, 1, (3, 3, 64, 64)).astype(np.float32)
     else:
         x = RNG.integers(0, 256, (3, 3, 64, 64)).astype(np.uint8)
-    jfn, _ = jinterp.build_int_pipeline(full_model, engine="xla")
+    tmodel, jmodel = full_model
+    jfn, _ = jinterp.build_int_pipeline(jmodel, engine="xla")
     want = jax.jit(jfn)(jnp.asarray(x))
-    fn, _ = build_int_pipeline(full_model, "cpu")
+    fn, _ = build_int_pipeline(tmodel, "cpu")
     got = fn(x)
     assert int(got[1].sum()) > 0, "test input must produce detections"
     _assert_dets_equal(got, want, dtype)
 
 
 def test_pipeline_pad_batch_to_equals_jax(full_model):
+    tmodel, jmodel = full_model
     x = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
-    jfn, _ = jinterp.build_int_pipeline(full_model, engine="xla",
+    jfn, _ = jinterp.build_int_pipeline(jmodel, engine="xla",
                                         pad_batch_to=5)
-    fn, _ = build_int_pipeline(full_model, "cpu", pad_batch_to=5)
+    fn, _ = build_int_pipeline(tmodel, "cpu", pad_batch_to=5)
     got = fn(x)
     _assert_dets_equal(got, jax.jit(jfn)(jnp.asarray(x)), "padded")
-    plain_fn, _ = build_int_pipeline(full_model, "cpu")
+    plain_fn, _ = build_int_pipeline(tmodel, "cpu")
     _assert_dets_equal(got, plain_fn(x), "padded vs unpadded")
 
 
@@ -84,13 +89,14 @@ def test_pipeline_coalesce_requests_equals_jax(full_model):
     reqs = [RNG.integers(0, 256, (2, 3, 64, 64)).astype(np.uint8),
             RNG.uniform(0, 1, (1, 3, 64, 64)).astype(np.float32),
             RNG.uniform(0, 1, (3, 3, 64, 64)).astype(np.float32)]
-    jfn, _ = jinterp.build_int_pipeline(full_model, engine="xla",
+    tmodel, jmodel = full_model
+    jfn, _ = jinterp.build_int_pipeline(jmodel, engine="xla",
                                         coalesce_requests=3)
     want = jax.jit(jfn)(*[jnp.asarray(r) for r in reqs])
-    fn, _ = build_int_pipeline(full_model, "cpu", coalesce_requests=3)
+    fn, _ = build_int_pipeline(tmodel, "cpu", coalesce_requests=3)
     got = fn(*reqs)
     assert len(got) == 3
-    single, _ = build_int_pipeline(full_model, "cpu")
+    single, _ = build_int_pipeline(tmodel, "cpu")
     for i, r in enumerate(reqs):
         _assert_dets_equal(got[i], want[i], f"request {i}")
         _assert_dets_equal(got[i], single(r), f"request {i} alone")
@@ -102,10 +108,11 @@ def test_pipeline_without_nms_equals_jax(full_model):
     """with_nms=False returns the (B, 84, N) plane; the class sigmoid is
     deferred to NMS, so the class rows hold requantized pre-sigmoid
     scores."""
+    tmodel, jmodel = full_model
     x = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
-    jfn, _ = jinterp.build_int_pipeline(full_model, engine="xla",
+    jfn, _ = jinterp.build_int_pipeline(jmodel, engine="xla",
                                         with_nms=False)
-    fn, _ = build_int_pipeline(full_model, "cpu", with_nms=False)
+    fn, _ = build_int_pipeline(tmodel, "cpu", with_nms=False)
     np.testing.assert_array_equal(fn(x).numpy(),
                                   np.asarray(jax.jit(jfn)(jnp.asarray(x))))
 
@@ -114,10 +121,10 @@ def test_partial_quant_pipeline_matches_jax_within_f32_rounding():
     """Partial quant decodes in float (softmax, sigmoid), which differs in
     the last bits between XLA and torch: same detection count, boxes
     within 1e-3 px, scores within rtol 1e-5."""
-    model, params = _model(full=False, seed=4)
-    dfl = np.asarray(params["dfl"]["w"])
+    model, jmodel = _model(full=False, seed=4)
+    dfl = np.arange(16, dtype=np.float32)     # init_params' DFL weight
     x = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
-    jfn, _ = jinterp.build_int_pipeline(model, dfl_w_float=dfl,
+    jfn, _ = jinterp.build_int_pipeline(jmodel, dfl_w_float=dfl,
                                         engine="xla")
     det_j, n_j = jax.jit(jfn)(jnp.asarray(x))
     fn, _ = build_int_pipeline(model, "cpu", dfl_w_float=dfl)
@@ -138,18 +145,19 @@ def test_collect_stats_equals_jax_within_float_rounding():
     """Float convs are not bit-identical across frameworks: rtol 1e-5."""
     cfg = QuantConfig(model="yolov8n", k=8, image_size=64)
     graph = build_yolov8_graph(cfg)
+    tgraph = t_build_graph(TConfig(model="yolov8n", k=8, image_size=64))
     params = init_params(graph, seed=5)
     batches = [RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
                for _ in range(2)]
     want = jcal.collect_stats(graph, params, batches)
-    got = tcal.collect_stats(graph, params, batches)
+    got = tcal.collect_stats(tgraph, params, batches, "cpu")
     assert set(got) == set(want)
     for tap in want:
         assert len(got[tap]) == 4
         np.testing.assert_allclose(got[tap], want[tap], rtol=1e-5,
                                    err_msg=tap)
     outs_j, _ = j_forward(graph, params, jnp.asarray(batches[0]))
-    outs_t, _ = forward_float(graph, params_to_torch(params, "cpu"),
+    outs_t, _ = forward_float(tgraph, params_to_torch(params, "cpu"),
                               torch.as_tensor(batches[0]))
     for role in outs_j:
         np.testing.assert_allclose(outs_t[role].numpy(),
@@ -193,45 +201,51 @@ _DIGEST = textwrap.dedent("""
 
 
 def test_port_runs_without_jax():
-    """Building the model and running the 64-px pipeline through the port
-    never loads jax (a deployment may have none), and the model built
-    that way equals the one the JAX package builds."""
+    """Building the model (graph, params, calibration, quantize) and running
+    the 64-px pipeline and golden oracle through the port never loads jax
+    or any module of the JAX package (a deployment may have neither), and
+    the model built that way equals the one the JAX package builds."""
     code = _DIGEST + textwrap.dedent("""
         import sys
         import alpha_yolo_quant_torch
-        from alpha_yolo_quant_tpu.config import QuantConfig
-        from alpha_yolo_quant_tpu.models.graph import build_yolov8_graph
-        from alpha_yolo_quant_tpu.models.params import init_params
-        from alpha_yolo_quant_tpu.runtime.golden import golden_forward
+        from alpha_yolo_quant_torch.config import QuantConfig
+        from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
+        from alpha_yolo_quant_torch.models.params import init_params
+        from alpha_yolo_quant_torch.runtime.golden import golden_forward
         from alpha_yolo_quant_torch.quantize.calibrate import (
             collect_stats, reduce_stats)
         from alpha_yolo_quant_torch.quantize.transform import (
             build_quantized_model)
         from alpha_yolo_quant_torch.runtime.interpreter import (
-            build_int_pipeline)
+            build_int_pipeline, device_plan, int_forward, quantize_input)
+        import torch
         cfg = QuantConfig(model="yolov8n", k=8, full_quant=True,
                           image_size=64)
         g = build_yolov8_graph(cfg)
         p = init_params(g, seed=0)
         x = np.random.default_rng(0).uniform(0, 1, (2, 3, 64, 64)).astype(
             np.float32)
-        max_a = reduce_stats(collect_stats(g, p, [x]))
+        max_a = reduce_stats(collect_stats(g, p, [x], "cpu"))
         m = build_quantized_model(g, p, max_a, cfg)
-        golden_forward(m, x[:1])
+        env = golden_forward(m, x[:1])
+        outs = int_forward(m, device_plan(m, "cpu"),
+                           quantize_input(torch.as_tensor(x[:1]), 8))
+        for role in g.outputs:
+            assert np.array_equal(outs[role].numpy(), env[role])
         fn, _ = build_int_pipeline(m, "cpu")
         det, n = fn(x)
         assert det.shape == (2, 300, 6)
         print("MAX_A", repr(sorted(max_a.items())))
         print("DIGEST", model_digest(m))
         bad = sorted(k for k in sys.modules if k == "jax" or
-                     k.startswith("jax.") or k.startswith("jaxlib"))
-        print("JAX_MODULES", bad)
+                     k.startswith(("jax.", "jaxlib", "alpha_yolo_quant_tpu")))
+        print("FORBIDDEN_MODULES", bad)
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "JAX_MODULES []" in res.stdout, res.stdout[-2000:]
+    assert "FORBIDDEN_MODULES []" in res.stdout, res.stdout[-2000:]
     lines = dict(ln.split(" ", 1) for ln in res.stdout.splitlines()
                  if ln.startswith(("MAX_A", "DIGEST")))
     ns = {}
@@ -244,15 +258,32 @@ def test_port_runs_without_jax():
     assert lines["DIGEST"] == ns["model_digest"](want)
 
 
+def _imported_roots(path):
+    """Top-level package of every import statement in a Python file (the
+    AST, so comments and strings do not count)."""
+    roots = set()
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
 def test_port_sources_never_import_jax():
-    root = os.path.join(REPO, "alpha_yolo_quant_torch")
-    offenders = []
-    for dirpath, _, files in os.walk(root):
-        for f in files:
-            if f.endswith(".py"):
-                src = open(os.path.join(dirpath, f)).read()
-                if "import jax" in src or "from jax" in src:
-                    offenders.append(f)
-    smoke = open(os.path.join(REPO, "chip_smoke.py")).read()
-    assert not offenders and "import jax" not in smoke \
-        and "from jax" not in smoke
+    """No module of the port and no line of chip_smoke.py imports jax or
+    the JAX package."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(REPO,
+                                                  "alpha_yolo_quant_torch")):
+        files += [os.path.join(dirpath, f) for f in names
+                  if f.endswith(".py")]
+    assert len(files) > 20
+    forbidden = {"jax", "jaxlib", "alpha_yolo_quant_tpu"}
+    offenders = {os.path.relpath(f, REPO): sorted(_imported_roots(f)
+                                                  & forbidden)
+                 for f in files}
+    assert not {f: r for f, r in offenders.items() if r}
+    assert "torch" in _imported_roots(os.path.join(
+        REPO, "alpha_yolo_quant_torch", "runtime", "interpreter.py"))

@@ -1,6 +1,8 @@
 """The PyTorch port's int_forward against the numpy int64 oracle
 golden_forward on every edge, and its head edges against the JAX
-int_forward(engine="xla"), at the 64-px scale. Bit-exact."""
+int_forward(engine="xla"), at the 64-px scale. Bit-exact. The port's model
+is built by the port's own modules, the JAX model by the JAX package's,
+from the same numpy params and calibration."""
 
 import numpy as np
 import pytest
@@ -11,32 +13,20 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from alpha_yolo_quant_tpu.config import QuantConfig
-from alpha_yolo_quant_tpu.models.graph import build_yolov8_graph
-from alpha_yolo_quant_tpu.models.params import init_params
-from alpha_yolo_quant_tpu.quantize.transform import build_quantized_model
 from alpha_yolo_quant_tpu.runtime import interpreter as jinterp
 from alpha_yolo_quant_tpu.runtime.golden import golden_forward
-from alpha_yolo_quant_torch.quantize.calibrate import (
-    collect_stats, reduce_stats,
-)
 from alpha_yolo_quant_torch.runtime.interpreter import (
     device_plan, int_forward, quantize_input,
 )
+from test_torch_model_build import build_pair
 
 RNG = np.random.default_rng(42)
 
 
 def _setup(k=8, full_quant=False, size=64, seed=0, tamper=None):
-    cfg = QuantConfig(model="yolov8n", k=k, full_quant=full_quant,
-                      image_size=size)
-    graph = build_yolov8_graph(cfg)
-    params = init_params(graph, seed=seed)
-    calib = RNG.uniform(0, 1, (2, 3, size, size)).astype(np.float32)
-    max_a = reduce_stats(collect_stats(graph, params, [calib]), "max", k)
-    if tamper:
-        max_a = tamper(graph, max_a)
-    return build_quantized_model(graph, params, max_a, cfg)
+    """(port model, JAX model) from the same params and calibration."""
+    return build_pair(k=k, full_quant=full_quant, size=size, seed=seed,
+                      calib_seed=int(RNG.integers(1 << 30)), tamper=tamper)
 
 
 def _port_env(model, x, head_requant=False):
@@ -71,12 +61,12 @@ def _jax_heads(model, x, head_requant=False):
 @pytest.mark.parametrize("full", [False, True], ids=["partial", "full"])
 @pytest.mark.parametrize("k", [8, 6, 4, 2])
 def test_int_forward_equals_golden_and_jax(k, full):
-    model = _setup(k=k, full_quant=full)
+    model, jmodel = _setup(k=k, full_quant=full)
     x = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
     outs, env = _port_env(model, x)
-    _assert_env_equals_golden(model, env, golden_forward(model, x),
+    _assert_env_equals_golden(model, env, golden_forward(jmodel, x),
                               f"k={k} full={full}")
-    want = _jax_heads(model, x)
+    want = _jax_heads(jmodel, x)
     for role in model.graph.outputs:
         assert outs[role].dtype == torch.int32
         np.testing.assert_array_equal(outs[role].numpy(), want[role],
@@ -84,10 +74,10 @@ def test_int_forward_equals_golden_and_jax(k, full):
 
 
 def test_head_requant_equals_jax():
-    model = _setup(full_quant=True)
+    model, jmodel = _setup(full_quant=True)
     x = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
     outs, _ = _port_env(model, x, head_requant=True)
-    want = _jax_heads(model, x, head_requant=True)
+    want = _jax_heads(jmodel, x, head_requant=True)
     for role in model.graph.outputs:
         assert str(outs[role].dtype).split(".")[-1] == str(want[role].dtype)
         np.testing.assert_array_equal(outs[role].numpy(), want[role],
@@ -103,7 +93,7 @@ def test_wide_edges_exact_with_saturated_concats():
             t[graph.conv_by_name(name).out_tap] *= 0.05
         return t
 
-    model = _setup(tamper=tamper, seed=2)
+    model, jmodel = _setup(tamper=tamper, seed=2)
     wide = [e for e, a in model.edge_amax_int.items() if a > 254]
     assert wide, "plan must declare 381-wide edges"
     x = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
@@ -111,9 +101,9 @@ def test_wide_edges_exact_with_saturated_concats():
     observed = max(int(env[e].abs().max()) for e in wide)
     assert observed > 254, "test data must exceed the int8 range"
     assert all(env[e].dtype == torch.int16 for e in wide)
-    _assert_env_equals_golden(model, env, golden_forward(model, x),
+    _assert_env_equals_golden(model, env, golden_forward(jmodel, x),
                               "saturated")
-    want = _jax_heads(model, x)
+    want = _jax_heads(jmodel, x)
     for role in model.graph.outputs:
         np.testing.assert_array_equal(outs[role].numpy(), want[role])
 
