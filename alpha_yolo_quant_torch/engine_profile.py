@@ -8,7 +8,10 @@ chip_smoke.py serves (yolov8n K=8 full quant 640, random weights from seed
 (fused, pallas, packed): CUDA events around quantize, int_forward and the
 decode + q_NMS tail of one batch, then one torch.profiler pass over a
 whole batch with the device time summed by kernel, the port's kernels by
-name and the rest as torch ops. Prints one JSON line per engine.
+name and the rest as torch ops. Prints one JSON line per engine, then one
+line with each conv of the fused forward timed alone on the activations
+that forward feeds it: its device time, the time with the raw int32
+epilogue instead of the SiLU chain, and its bound.
 """
 
 from __future__ import annotations
@@ -26,8 +29,12 @@ from alpha_yolo_quant_torch.runtime.interpreter import (
 )
 
 BATCH = 128
+# one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, int8 tensor ops/s
+HBM_BPS = 3.35e12
+INT8_OPS = 1.979e15
+SPIN_CYCLES = 40_000_000   # about 20 ms of the card at its boost clock
 # device-side names of the port's kernels (runtime/csrc) -> report label
-PORT_KERNELS = {"conv_igemm": "conv1x1/conv3x3", "postconv_kernel":
+PORT_KERNELS = {"conv_wgmma": "conv1x1/conv3x3", "postconv_kernel":
                 "postconv", "packed_conv_kernel": "packed_conv",
                 "sigma_probe_kernel": "sigma_probe"}
 
@@ -55,6 +62,84 @@ def build_model(image_size: int = 640, device="cuda"):
     max_a = reduce_stats(collect_stats(graph, params, [calib], device),
                          "max", cfg.k)
     return build_quantized_model(graph, params, max_a, cfg)
+
+
+def device_ms(fn, reps: int, warmup: int = 1, spin: bool = True) -> float:
+    """Mean milliseconds per call, CUDA events around `reps` calls after a
+    warm-up and a synchronize. With `spin` the calls queue behind a busy
+    wait of the card (torch.cuda._sleep), so the time is the card's alone
+    even where a call is shorter than the host's cost of making it;
+    without it the host's launch cost shows in short calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time the card could take, bytes at
+    the HBM rate against operations at the dense int8 tensor rate."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / INT8_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def conv_layers(model, x: torch.Tensor, reps: int = 5) -> list:
+    """Each conv of one fused forward on `x`, timed alone (device_ms) on
+    the activations the forward fed it: with its epilogue, and with the
+    raw int32 one in place of the SiLU chain, beside its bound."""
+    from alpha_yolo_quant_torch.runtime.interpreter import device_plan
+
+    plan = device_plan(model, "cuda")
+    names = {id(c): n for n, c in plan["convs"].items()}
+    calls = []
+    kernels = {"conv1x1": fused_ops.conv1x1, "conv3x3": fused_ops.conv3x3}
+
+    def recorder(fn):
+        def call(xi, c, sig=None, qmax=127):
+            calls.append((names[id(c)], fn, xi, c))
+            return fn(xi, c, sig, qmax)
+        return call
+
+    for k, fn in kernels.items():
+        setattr(fused_ops, k, recorder(fn))
+    try:
+        int_forward(model, plan, quantize_input(x, model.cfg.k),
+                    head_requant=model.cfg.full_quant)
+    finally:
+        for k, fn in kernels.items():
+            setattr(fused_ops, k, fn)
+    sig, qmax = plan["sig_lut"], model.cfg.qmax
+    rows = []
+    for name, fn, xi, c in calls:
+        out = fn(xi, c, sig, qmax)
+        ms = device_ms(lambda: fn(xi, c, sig, qmax), reps)
+        raw = dict(c, silu=False)
+        raw_ms = (device_ms(lambda: fn(xi, raw, sig, qmax), reps)
+                  if c["silu"] else ms)
+        consts = [c[f] for f in ("b", "r1", "s1", "r2", "s2") if f in c]
+        macs = out.numel() * c["cin"] * c["kernel"] ** 2
+        b_ms, b_by = bound(nbytes(xi, out, c["w_packed"], *consts),
+                           2 * macs)
+        rows.append({"conv": name, "shape": [*xi.shape, c["cout"],
+                                             c["kernel"], c["stride"]],
+                     "dtype": str(xi.dtype).replace("torch.", ""),
+                     "silu": c["silu"], "ms": ms, "raw_epilogue_ms": raw_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+    return rows
 
 
 def _events_ms(fn):
@@ -127,6 +212,13 @@ def main() -> int:
     for engine in ("fused", "pallas", "packed"):
         print(json.dumps(dict(profile_engine(model, engine, x), card=card)),
               flush=True)
+    rows = conv_layers(model, x)
+    print(json.dumps({"conv_layers": rows, "batch": BATCH, "card": card,
+                      "sum_ms": sum(r["ms"] for r in rows),
+                      "sum_raw_epilogue_ms": sum(r["raw_epilogue_ms"]
+                                                 for r in rows),
+                      "sum_bound_ms": sum(r["bound_ms"] for r in rows)}),
+          flush=True)
     return 0
 
 

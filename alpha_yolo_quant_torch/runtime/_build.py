@@ -42,16 +42,18 @@ ARGTYPES = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# seconds the last build() took and the ptxas report of each source
+# seconds the last build() took, and per source its ptxas report and the
+# path of its library
 BUILD_INFO: Dict[str, object] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    cand = shutil.which(name) or os.path.join(home, "bin", name)
     if not os.path.exists(cand):
-        raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA "
-                           "toolkit (set CUDA_HOME)")
+        raise RuntimeError(f"{name} not found: the Hopper kernels need the "
+                           "CUDA toolkit (set CUDA_HOME)")
     return cand
 
 
@@ -78,7 +80,7 @@ def build() -> Dict[str, ctypes.CDLL]:
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -98,6 +100,7 @@ def build() -> Dict[str, ctypes.CDLL]:
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
+        BUILD_INFO[f"lib_{name}"] = str(so)
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     return _LIBS
 

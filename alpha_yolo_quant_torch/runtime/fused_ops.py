@@ -10,8 +10,9 @@ on first use by runtime/_build.py) or raises. There is no fallback from a
 failed launch.
 
 Activations are NHWC. A conv's plan entry (interpreter.device_plan) holds
-its weights twice: OIHW float64 for the plain version and the kernel's
-packed tap-major int8 words (pack_weights).
+its weights twice: OIHW float64 for the plain version and the tensor-core
+kernels' B operand, (Cout, Kp) int8 with the depth tap-major and
+contiguous per output channel (pack_weights).
 """
 
 from __future__ import annotations
@@ -31,8 +32,11 @@ LAUNCHES: Dict[str, int] = {"conv1x1": 0, "conv3x3": 0, "sigma_probe": 0,
                             "postconv_silu": 0, "postconv_plain": 0,
                             "packed_conv": 0}
 
-K_TILE = 32        # conv_igemm.cuh BK: packed weight depth is padded to it
-MAX_LUT = 256      # epilogue.cuh kMaxLut
+K_TILE = 64        # conv_igemm.cuh BK, the depth of one pipeline stage:
+#                    packed weight depth is zero-padded to a multiple of it
+MAX_LUT = 256      # epilogue.cuh kMaxLut: the longest sigmoid table
+CHUNK = 16         # channels per cp.async copy (conv_igemm.cuh): inputs
+#                    with Cin % CHUNK == 0 are read 16 bytes at a time
 _ACT_TYPES = (torch.int8, torch.int16)
 
 
@@ -41,15 +45,20 @@ def reset_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def packed_depth(depth: int) -> int:
+    """Kp: a conv's depth k*k*Cin rounded up to K_TILE."""
+    return -(-depth // K_TILE) * K_TILE
+
+
 def pack_weights(w_q: np.ndarray) -> np.ndarray:
-    """OIHW integer weights -> the kernels' int32 words (Kp/4, O): depth
-    k = (dy*kw + dx)*Cin + c, zero-padded to a multiple of K_TILE, four
-    int8 weights per little-endian word."""
+    """OIHW integer weights -> the kernels' B operand, int8 (O, Kp): row n
+    holds output channel n at depth k = (dy*kw + dx)*Cin + c, zero-padded
+    to Kp, a multiple of K_TILE (K-major, the layout wgmma reads)."""
     o = w_q.shape[0]
     wk = np.ascontiguousarray(w_q.transpose(0, 2, 3, 1)).reshape(o, -1)
-    kp = -(-wk.shape[1] // K_TILE) * K_TILE
-    wk = np.pad(wk, ((0, 0), (0, kp - wk.shape[1]))).astype(np.int8)
-    return np.ascontiguousarray(wk.view("<i4").T)
+    kp = packed_depth(wk.shape[1])
+    return np.ascontiguousarray(
+        np.pad(wk, ((0, 0), (0, kp - wk.shape[1]))).astype(np.int8))
 
 
 def conv_entry(w_q, b_q, stride: int, padding: int, silu: bool, device,
@@ -157,11 +166,20 @@ def _check_conv(name: str, x: torch.Tensor, c: Dict, sig, qmax: int):
     if x.shape[3] != c["cin"]:
         raise ValueError(f"{name}: {x.shape[3]} input channels, weights "
                          f"take {c['cin']}")
-    if c["cin"] % 4 == 0 and x.data_ptr() % (4 * x.element_size()):
-        # the vector path loads four channels as one aligned word
-        raise ValueError(f"{name}: input not aligned to 4 channels")
-    if c["w_packed"].device != x.device:
-        raise ValueError(f"{name}: weights on {c['w_packed'].device}, "
+    if c["cin"] % CHUNK == 0 and x.data_ptr() % 16:
+        # the vector path copies 16 channels at a time, 16-byte aligned
+        raise ValueError(f"{name}: input not 16-byte aligned")
+    w = c["w_packed"]
+    shape = (c["cout"], packed_depth(c["kernel"] ** 2 * c["cin"]))
+    if w.dtype != torch.int8 or tuple(w.shape) != shape \
+            or not w.is_contiguous():
+        raise ValueError(f"{name}: packed weights must be contiguous int8 "
+                         f"{shape} (pack_weights), got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name}: packed weights not 16-byte aligned")
+    if w.device != x.device:
+        raise ValueError(f"{name}: weights on {w.device}, "
                          f"input on {x.device}")
     if c["silu"]:
         _check_table(name, sig, qmax)
@@ -202,8 +220,8 @@ def conv1x1(x: torch.Tensor, c: Dict, sig: DeviceLut = None,
             qmax: int = 127) -> torch.Tensor:
     """1x1 conv + epilogue over NHWC int8/int16 rows (replaces
     pallas_ops.fused_conv1x1). Returns NHWC int8 (SiLU) or int32."""
-    if c["kernel"] != 1:
-        raise ValueError("conv1x1 takes 1x1 convs")
+    if c["kernel"] != 1 or c["stride"] != 1 or c["padding"] != 0:
+        raise ValueError("conv1x1 takes 1x1 convs at stride 1, no padding")
     if _on_cpu(x):
         return conv_plain(x, c, sig, qmax)
     return _launch_conv("conv1x1", x, c, sig, qmax)

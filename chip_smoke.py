@@ -5,13 +5,19 @@
 Phases (each one raises on failure; nothing falls back to the CPU):
   1. print the card's name and power limit; build the Hopper kernels from
      alpha_yolo_quant_torch/runtime/csrc and print the build seconds;
+     count the integer tensor-core (IGMMA/IMMA) and __dp4a/__dp2a (IDP)
+     instructions in each library's SASS: the conv libraries must have
+     tensor-core ones;
   2. build a yolov8n K=8 full-quant 640 model with random weights from a
      seed, calibrated by the port's own float forward;
-  3. hold every kernel against its plain PyTorch version on the card
-     (B=8), max|diff| must be 0, and time both with CUDA events: the conv
-     kernels at shapes read from the graph IR, the postconv epilogues on
-     the nibble-split partials of a yolov8n conv, the banded slab conv on
-     six convs of the 640 model's slab plan;
+  3. hold every kernel against its plain PyTorch version on the card,
+     max|diff| must be 0: conv1x1/conv3x3 on all 63 conv shapes of the
+     graph at B=2 (int16 input on the wide edges); then time kernel and
+     plain with CUDA events: the conv kernels at shapes read from the
+     graph IR at B=8 and B=128, with torch._int_mm on the same int8
+     product as the yardstick, the postconv epilogues on the nibble-split
+     partials of a yolov8n conv, the banded slab conv on six convs of the
+     640 model's slab plan (B=8);
   4. serve three coalesced requests (4 uint8 + 8 f32 + 4 f32 images)
      through build_int_pipeline on each engine (fused, pallas, packed),
      with the launch counts set to 0 just before each and read just after:
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,9 +63,6 @@ ENGINE_KERNELS = {   # kernels each serving engine launches
     "pallas": ("postconv_silu", "postconv_plain"),
     "packed": ("packed_conv",),
 }
-# one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, int8 tensor ops/s
-HBM_BPS = 3.35e12
-INT8_OPS = 1.979e15
 
 
 def log(msg: str) -> None:
@@ -71,36 +75,6 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call, CUDA events around `reps` calls after
-    a warm-up and a synchronize."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the least time the card could take, bytes at
-    the HBM rate against operations at the dense int8 tensor rate."""
-    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / INT8_OPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def max_err(got, want, label: str) -> int:
@@ -159,7 +133,10 @@ KERNEL_CASES = [
     ("1x1 plain cls", "x_result_5_down_2", False, False),
     ("3x3 s1 wide int16", "C2F_4_bottle_2", True, True),
     ("1x1 silu wide int16", "C2F_4_conv_1", True, True),
+    ("3x3 s1 head 80->80", "x_result_5_down_1", False, True),
+    ("3x3 s1 128->128", "C2F_8_bottle_0", False, True),
 ]
+CONV_LIBS = ("conv1x1", "conv3x3")
 # (kernel, conv name): the postconv epilogues on the partials of a conv
 POSTCONV_CASES = [("postconv_silu", "Conv_P1"),
                   ("postconv_plain", "x_result_5_down_2")]
@@ -205,9 +182,59 @@ def keep_case(res: dict, name: str, work: float, **fields) -> None:
         r.update(fields, work=work)
 
 
+def check_tensor_cores() -> None:
+    """Phase 1b: integer tensor-core (IGMMA, IMMA) and dot-product (IDP.4A
+    = __dp4a, IDP.2A = __dp2a) instructions in each library's SASS
+    (cuobjdump -sass); fails if a conv library has no tensor-core one."""
+    from alpha_yolo_quant_torch.runtime import _build
+
+    tool = _build.cuda_tool("cuobjdump")
+    for name in _build.SOURCES:
+        sass = subprocess.run([tool, "-sass", _build.BUILD_INFO[f"lib_{name}"]],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        n = {op: len(re.findall(rf"\b{re.escape(op)}\.", sass))
+             for op in ("IGMMA", "IMMA", "IDP.4A", "IDP.2A")}
+        log(f"sass {name}: " + " ".join(f"{k}={v}" for k, v in n.items()))
+        if name in CONV_LIBS and n["IGMMA"] + n["IMMA"] == 0:
+            raise AssertionError(f"{name}: no integer tensor-core "
+                                 "instruction in its SASS")
+
+
+def check_every_conv_shape(model, sig, batch: int = 2) -> None:
+    """Phase 3a: conv1x1/conv3x3 against conv_plain on every conv of the
+    graph at its own shape, int16 input where the model marks the input
+    edge wide (edge_amax_int > 127)."""
+    from alpha_yolo_quant_torch.runtime import fused_ops
+
+    geo = edge_geometry(model.graph)
+    convs = model.graph.convs()
+    wide = []
+    t0 = time.perf_counter()
+    for i, node in enumerate(convs):
+        is_wide = model.edge_amax_int.get(node.src, 0) > 127
+        x, c = random_conv_case(node, geo[node.src][1], batch, is_wide,
+                                node.silu, seed=300 + i,
+                                device=sig.values.device)
+        wrapper = (fused_ops.conv1x1 if node.kernel == 1
+                   else fused_ops.conv3x3)
+        max_err(wrapper(x, c, sig), fused_ops.conv_plain(x, c, sig, 127),
+                f"{node.name} {node.cin}->{node.cout} k{node.kernel} "
+                f"s{node.stride}")
+        if is_wide:
+            wide.append(node.name)
+    log(f"kernel conv1x1/conv3x3: all {len(convs)} conv shapes of the "
+        f"{model.cfg.image_size}px graph at B={batch} equal conv_plain "
+        f"(max_abs_err=0; int16 input on the {len(wide)} wide edges: "
+        f"{', '.join(wide)}) in {time.perf_counter() - t0:.1f} s")
+
+
 def check_conv_kernels(graph, sig, res, batch: int, reps: int):
     """conv1x1 and conv3x3 against conv_plain at yolov8n-640 shapes, and
-    torch._int_mm on the 1x1 products as the library yardstick."""
+    torch._int_mm on the same int8 product (for a 3x3, the unfolded
+    (B*Ho*Wo, 9*Cin) x (9*Cin, Cout) one, the unfold not timed) as the
+    library yardstick."""
+    from alpha_yolo_quant_torch.engine_profile import bound, device_ms, nbytes
     import torch
 
     from alpha_yolo_quant_torch.runtime import fused_ops
@@ -223,29 +250,34 @@ def check_conv_kernels(graph, sig, res, batch: int, reps: int):
         wrapper = getattr(fused_ops, kname)
         got = wrapper(x, c, sig)
         err = max_err(got, fused_ops.conv_plain(x, c, sig, 127), label)
-        ms = cuda_ms(lambda: wrapper(x, c, sig), reps)
-        plain_ms = cuda_ms(lambda: fused_ops.conv_plain(x, c, sig, 127),
+        ms = device_ms(lambda: wrapper(x, c, sig), reps)
+        host_ms = device_ms(lambda: wrapper(x, c, sig), reps, spin=False)
+        plain_ms = device_ms(lambda: fused_ops.conv_plain(x, c, sig, 127),
                            max(2, reps // 5))
         macs = (x.shape[0] * got.shape[1] * got.shape[2] * node.cout
                 * node.cin * node.kernel ** 2)
         consts = [c[f] for f in ("b", "r1", "s1", "r2", "s2") if f in c]
         bound_ms, bound_by = bound(
             nbytes(x, got, *consts) + c["w_f64"].numel(), 2 * macs)
-        lib_ms = None
-        if node.kernel == 1:
-            m_rows = x.shape[0] * hw * hw
-            a8 = torch.randint(-127, 128, (m_rows, node.cin),
-                               dtype=torch.int8, device=dev)
-            w8 = torch.randint(-127, 128, (node.cin, node.cout),
-                               dtype=torch.int8, device=dev)
-            lib_ms = cuda_ms(lambda: torch._int_mm(a8, w8), reps)
+        m_rows = got.shape[0] * got.shape[1] * got.shape[2]
+        depth = node.cin * node.kernel ** 2
+        k_mm = -(-depth // 8) * 8    # _int_mm takes a depth divisible by 8
+        a8 = torch.randint(-127, 128, (m_rows, k_mm), dtype=torch.int8,
+                           device=dev)
+        w8 = torch.randint(-127, 128, (k_mm, node.cout), dtype=torch.int8,
+                           device=dev)
+        lib_ms = device_ms(lambda: torch._int_mm(a8, w8), reps)
+        del a8, w8
         shape = (f"B={batch} {node.cin}->{node.cout} {node.kernel}x"
                  f"{node.kernel} s{node.stride} {hw}px "
                  f"{'int16' if wide else 'int8'} "
                  f"{'silu' if silu else 'plain'}")
-        lib = "" if lib_ms is None else f" _int_mm_ms={lib_ms:.4f}"
+        lib = (f" _int_mm_ms={lib_ms:.4f} ({m_rows}x{k_mm}x{node.cout}"
+               f"{'' if node.kernel == 1 else ', unfold not timed'}"
+               f"{f', depth {depth} padded' if k_mm != depth else ''})")
         log(f"kernel {kname} [{label}] {name} {shape}: max_abs_err={err} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}"
+            f"ms={ms:.4f} (host in the loop: {host_ms:.4f}) "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}"
             f"{lib} GMAC/s={macs / ms / 1e6:.1f} "
             f"distinct_out={int(torch.unique(got).numel())}")
         keep_case(res, kname, macs, max_abs_err=err, ms=ms,
@@ -257,6 +289,7 @@ def check_postconv_kernels(graph, sig, res, batch: int, reps: int):
     """postconv_silu/plain on the real nibble-split partials of a yolov8n
     conv (NHWC, channel axis 3), against their plain versions and against
     the whole conv's plain version."""
+    from alpha_yolo_quant_torch.engine_profile import bound, device_ms, nbytes
     from alpha_yolo_quant_torch.ops.nn import conv2d_int_parts
     from alpha_yolo_quant_torch.runtime import fused_ops
 
@@ -289,8 +322,8 @@ def check_postconv_kernels(graph, sig, res, batch: int, reps: int):
         err = max_err(got, run_plain(), kname)
         max_err(got, fused_ops.conv_plain(x, c, sig, 127),
                 f"{kname} against the whole plain conv")
-        ms = cuda_ms(run, reps)
-        plain_ms = cuda_ms(run_plain, max(2, reps // 5))
+        ms = device_ms(run, reps)
+        plain_ms = device_ms(run_plain, max(2, reps // 5))
         bound_ms, bound_by = bound(nbytes(hi, lo, got, *consts), 0)
         shape = (f"B={batch} {node.cout}ch {geo[node.dst][1]}px NHWC "
                  f"(partials of {name})")
@@ -338,6 +371,7 @@ def packed_cases(sp):
 def check_packed_kernel(model, plan, res, batch: int, reps: int):
     """packed_conv on six convs of the 640 slab plan, random int8 input
     slabs in each conv's geometry, against packed_call_plain."""
+    from alpha_yolo_quant_torch.engine_profile import bound, device_ms, nbytes
     import torch
 
     from alpha_yolo_quant_torch.runtime import packed_conv as pc
@@ -360,8 +394,8 @@ def check_packed_kernel(model, plan, res, batch: int, reps: int):
         args = (x_slabs, taps, e, op.geom.gp2, op.h_out, sig)
         got = pc.packed_call(*args)
         err = max_err(got, pc.packed_call_plain(*args), label)
-        ms = cuda_ms(lambda: pc.packed_call(*args), reps)
-        plain_ms = cuda_ms(lambda: pc.packed_call_plain(*args),
+        ms = device_ms(lambda: pc.packed_call(*args), reps)
+        plain_ms = device_ms(lambda: pc.packed_call_plain(*args),
                            max(2, reps // 5))
         m = op.h_out * op.geom.gp2
         nnz = sum(int(np.count_nonzero(op.wlist[t])) for _, t, _ in taps)
@@ -384,16 +418,19 @@ def check_packed_kernel(model, plan, res, batch: int, reps: int):
 def check_kernels(model, plan, batch: int, reps: int = 10):
     """Phase 3: every kernel against its plain version on the card.
     Returns {kernel name: the fields of its kernels-line entry}."""
+    from alpha_yolo_quant_torch.engine_profile import bound, device_ms, nbytes
     from alpha_yolo_quant_torch.runtime import fused_ops
 
     res: dict = {}
     graph, sig = model.graph, plan["sig_lut"]
-    check_conv_kernels(graph, sig, res, batch, reps)
+    check_every_conv_shape(model, sig)
+    for b in (batch, 128):
+        check_conv_kernels(graph, sig, res, b, reps)
     got = fused_ops.sigma_probe(sig)
     err = max_err(got, fused_ops.sigma_probe_plain(sig), "sigma_probe")
     corr = fused_ops.sigma_corrections(sig)
-    ms = cuda_ms(lambda: fused_ops.sigma_probe(sig), 100)
-    plain_ms = cuda_ms(lambda: fused_ops.sigma_probe_plain(sig), 100)
+    ms = device_ms(lambda: fused_ops.sigma_probe(sig), 100)
+    plain_ms = device_ms(lambda: fused_ops.sigma_probe_plain(sig), 100)
     bound_ms, bound_by = bound(nbytes(sig.values, got), 0)
     log(f"kernel sigma_probe [255-entry sigmoid LUT]: max_abs_err={err} "
         f"corrections={corr} ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -509,6 +546,7 @@ def time_pipeline(model, device, card: str, engine: str, batch: int = 128,
                   reps: int = 3):
     """Phase 5: whole pipeline (uint8 images on the card -> detections)
     at B=128, host clock around synchronized batches after a warm-up."""
+    from alpha_yolo_quant_torch.engine_profile import device_ms
     import torch
 
     from alpha_yolo_quant_torch.runtime.interpreter import (
@@ -526,7 +564,7 @@ def time_pipeline(model, device, card: str, engine: str, batch: int = 128,
         det, n = fn(x)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
-    fwd = cuda_ms(lambda: fn(x), 1, warmup=0)
+    fwd = device_ms(lambda: fn(x), 1, warmup=0, spin=False)
     log(f"pipeline [{engine}] B={batch} {s}px yolov8n K=8 full-quant uint8 "
         f"in -> detections: {ms:.2f} ms/batch, {batch / ms * 1e3:.1f} img/s "
         f"(CUDA events: {fwd:.2f} ms) on {card}")
@@ -551,9 +589,12 @@ def main() -> int:
         f"{len(_build.SOURCES)} sources (sm_90a)")
     for name in _build.SOURCES:
         rep = _build.BUILD_INFO.get(f"ptxas_{name}", "")
-        for ln in rep.splitlines():
-            if "registers" in ln:
-                log(f"ptxas {name}: {ln.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", rep)]
+        spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                               rep))
+        log(f"ptxas {name}: {len(regs)} kernels, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, {spill} bytes spill stores")
+    check_tensor_cores()
 
     t0 = time.perf_counter()
     model = build_model(640, dev)   # the model engine_profile measures

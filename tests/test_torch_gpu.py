@@ -40,13 +40,21 @@ def cuda():
     return torch.device("cuda")
 
 
-# (cin, cout, kernel, stride, hw, wide input, silu): ragged rows and
-# columns, the Cin = 3 and Cin % 4 != 0 gathered loads, int16 inputs
+# (cin, cout, kernel, stride, hw, wide input, silu): ragged rows (M not a
+# multiple of the 128-row tile) and columns (Cout 20, 72 inside a wider
+# tile; 272 over two column blocks), the Cin = 3 and Cin % 16 != 0
+# gathered loads, int16 inputs (two byte passes), every yolov8n column
+# tile (16, 32, 64, 80, 128, 256), depth up to 9*256
 CASES = [(3, 16, 3, 2, 33, False, True), (16, 16, 3, 1, 20, False, True),
          (32, 64, 3, 2, 41, False, True), (48, 32, 1, 1, 13, False, True),
          (64, 64, 1, 1, 10, False, False), (80, 80, 1, 1, 10, False, False),
          (32, 32, 3, 1, 9, True, True), (128, 64, 1, 1, 7, True, True),
-         (6, 20, 3, 1, 5, True, False), (256, 72, 3, 1, 6, False, True)]
+         (6, 20, 3, 1, 5, True, False), (256, 72, 3, 1, 6, False, True),
+         (64, 80, 1, 1, 13, False, True), (80, 80, 3, 1, 12, False, False),
+         (64, 128, 3, 2, 15, False, True), (128, 256, 3, 2, 11, False, True),
+         (256, 256, 3, 1, 9, True, False), (512, 256, 1, 1, 7, False, True),
+         (32, 32, 1, 1, 15, False, True), (64, 272, 1, 1, 6, False, False),
+         (20, 24, 1, 1, 9, True, True)]
 
 
 @pytest.mark.parametrize("case", CASES, ids=[
@@ -74,6 +82,24 @@ def test_conv_kernel_equals_plain(cuda, case):
     assert fused_ops.LAUNCHES[wrapper.__name__] == before + 1
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("amax,sign", [(127, 1), (127, -1), (381, 1),
+                                       (381, -1)],
+                         ids=["int8+", "int8-", "wide+", "wide-"])
+def test_conv_kernel_accumulator_extremes(cuda, amax, sign):
+    """Every weight +127 against inputs of +-127 (int8) or +-381 (wide
+    int16) at depth 9*256, bias +-2^15: the interior sums reach
+    +-(amax*127*2304 + 2^15), the largest a yolov8n K=8 conv can hold."""
+    x = torch.full((2, 6, 6, 256), sign * amax, device=cuda,
+                   dtype=torch.int16 if amax > 127 else torch.int8)
+    c = fused_ops.conv_entry(np.full((32, 256, 3, 3), 127),
+                             np.full(32, sign * 2 ** 15), 1, 1, False, cuda)
+    got = fused_ops.conv3x3(x, c)
+    want = fused_ops.conv_plain(x, c, None, 127)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(got[:, 1:-1, 1:-1].min() * sign) == amax * 127 * 2304 + 2 ** 15
 
 
 def test_sigma_probe_returns_the_table(cuda):
