@@ -9,9 +9,12 @@ chip_smoke.py serves (yolov8n K=8 full quant 640, random weights from seed
 decode + q_NMS tail of one batch, then one torch.profiler pass over a
 whole batch with the device time summed by kernel, the port's kernels by
 name and the rest as torch ops. Prints one JSON line per engine, then one
-line with each conv of the fused forward timed alone on the activations
-that forward feeds it: its device time, the time with the raw int32
-epilogue instead of the SiLU chain, and its bound.
+line (`conv_layers`) with each conv of the fused forward timed alone on
+the activations that forward feeds it: its device time, the time with the
+raw int32 epilogue instead of the SiLU chain, and its bound; then one
+(`packed_layers`) with each slab conv of the packed forward timed alone
+on the slabs that forward feeds it, its bound and the share of blocks its
+tap masks keep.
 """
 
 from __future__ import annotations
@@ -95,6 +98,60 @@ def bound(n_bytes: float, n_ops: float):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def packed_bound(x_slabs, taps, e, out, m: int):
+    """(bound_ms, bound_by, useful MACs) of one packed_call: every input
+    slab read once, the output slab written once, the tap matrices and
+    lane constants read once; the MACs are the nonzero weights of the taps
+    over the m rows of each image."""
+    nnz = sum(int(torch.count_nonzero(e["w_f64"][t])) for _, t, _ in taps)
+    macs = out.shape[0] * m * nnz
+    b_ms, b_by = bound(nbytes(*x_slabs, out, e["w_blocks"], e["b"], e["r1"],
+                              e["s1"], e["r2"], e["s2"]), 2 * macs)
+    return b_ms, b_by, macs
+
+
+def packed_layers(model, x: torch.Tensor, reps: int = 5) -> list:
+    """Each slab conv (ConvOp) of one packed forward on `x`, timed alone
+    (device_ms) on the slabs that forward fed it, beside its bound, the
+    share of k32 x n16 blocks its tap masks keep, its live n16 pieces and
+    its tap groups (packed_conv.launch_plan). Rows are keyed by conv name,
+    as conv_layers' are."""
+    from alpha_yolo_quant_torch.runtime import packed_conv as pc
+    from alpha_yolo_quant_torch.runtime.interpreter import device_plan
+
+    plan = device_plan(model, "cuda")
+    calls = []
+    kernel = pc.packed_call
+
+    def recorder(x_slabs, taps, e, gp2, h_out, sig=None, qmax=127):
+        calls.append((x_slabs, taps, e, gp2, h_out, sig, qmax))
+        return kernel(x_slabs, taps, e, gp2, h_out, sig, qmax)
+
+    pc.packed_call = recorder
+    try:
+        int_forward(model, plan, quantize_input(x, model.cfg.k),
+                    head_requant=model.cfg.full_quant, engine="packed")
+    finally:
+        pc.packed_call = kernel
+    names = {id(e): n for n, e in plan["slab_dev"][1].items()}
+    rows = []
+    for args in calls:
+        x_slabs, taps, e, gp2, h_out = args[:5]
+        out = kernel(*args)
+        ms = device_ms(lambda: kernel(*args), reps)
+        b_ms, b_by, macs = packed_bound(x_slabs, taps, e, out, h_out * gp2)
+        rows.append({"conv": names[id(e)], "taps": len(taps),
+                     "slabs": len(x_slabs), "rows": h_out * gp2,
+                     "silu": e["silu"],
+                     "kept_blocks": pc.kept_blocks(taps, e) / (32 * len(taps)),
+                     "live_pieces": bin(e["live"]).count("1"),
+                     "groups": len(pc.launch_plan(taps, e)["groups"]),
+                     "ms": ms,
+                     "useful_gmacs": macs / 1e9, "bound_ms": b_ms,
+                     "bound_by": b_by})
+    return rows
 
 
 def conv_layers(model, x: torch.Tensor, reps: int = 5) -> list:
@@ -217,6 +274,11 @@ def main() -> int:
                       "sum_ms": sum(r["ms"] for r in rows),
                       "sum_raw_epilogue_ms": sum(r["raw_epilogue_ms"]
                                                  for r in rows),
+                      "sum_bound_ms": sum(r["bound_ms"] for r in rows)}),
+          flush=True)
+    rows = packed_layers(model, x)
+    print(json.dumps({"packed_layers": rows, "batch": BATCH, "card": card,
+                      "sum_ms": sum(r["ms"] for r in rows),
                       "sum_bound_ms": sum(r["bound_ms"] for r in rows)}),
           flush=True)
     return 0

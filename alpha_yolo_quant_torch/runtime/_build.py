@@ -26,9 +26,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U = ctypes.c_uint
 _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 # C signatures (runtime/csrc/*.cu): every device pointer and the stream as
-# c_void_p; host arrays (the slab conv's tap table) as pointer types
+# c_void_p; host arrays (the slab conv's slabs and launch plan) as pointer
+# types
 ARGTYPES = {
     "ayq_conv1x1": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                     _I, _I, _I, _I, _I, _I, _P],
@@ -37,8 +39,9 @@ ARGTYPES = {
     "ayq_sigma_probe": [_P, _I, _I, _P, _P],
     "ayq_postconv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _L, _I,
                      _L, _I, _P],
-    "ayq_packed_conv": [_PP, _PI, _I, _PI, _PI, _PI, _I, _P, _P, _P, _P, _P,
-                        _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ayq_packed_conv": [_PP, _PI, _I, _PI, _I, _PI, _I, _PI, _I, _PI, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
+                        _I, _I, _I, _U, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

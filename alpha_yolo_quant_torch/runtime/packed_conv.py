@@ -305,28 +305,147 @@ MAX_TAPS = 32     # packed_conv.cu kMaxTaps
 Tap = Tuple[int, int, int]    # (slab index, matrix index, row base)
 
 
-def packed_weights(wlist: Sequence[np.ndarray]) -> np.ndarray:
-    """(128, 128) int8 tap matrices W[k, n] -> the kernel's int32 words
-    (T, 32, 128): word [t, g, n] packs W_t[4g..4g+3, n], little-endian."""
-    w = np.stack([np.asarray(m, np.int8) for m in wlist])
-    w = np.ascontiguousarray(w.reshape(len(wlist), 32, 4, 128)
-                             .transpose(0, 1, 3, 2))
-    return w.view("<i4")[..., 0]
+TILE_ROWS = 128           # packed_conv.cu BM: output rows per block
+BLOCK_BYTES = 512         # one kept k32 x n16 block of a tap matrix
+GROUP_BYTES = 96 * 1024   # regions and kept blocks of one tap group: two
+                          # blocks of the kernel share an SM
+
+
+def block_masks(wlist: Sequence[np.ndarray]) -> Tuple[int, ...]:
+    """Per tap matrix, the 32-bit mask of its nonzero blocks: bit 8*kc + nc
+    is set iff W[32kc:32kc+32, 16nc:16nc+16] has a nonzero entry. The
+    kernel keeps and multiplies the set blocks only."""
+    out = []
+    for m in wlist:
+        nz = np.asarray(m).reshape(4, 32, 8, 16).any(axis=(1, 3))
+        out.append(sum(1 << (8 * kc + nc) for kc, nc in zip(*np.nonzero(nz))))
+    return tuple(out)
+
+
+def kept_block_weights(wlist: Sequence[np.ndarray],
+                       masks: Sequence[int]) -> np.ndarray:
+    """The kernel's B operand: each kept k32 x n16 block of each tap
+    matrix, matrices in order and each one's blocks in bit order, as
+    wgmma's no-swizzle K-major core matrices: int8 (n_blocks, 2, 16, 16),
+    [i, p, n, j] = W[32 kc + 16 p + j, 16 nc + n] (two 16-byte depth
+    planes of 16 lanes, K contiguous)."""
+    blocks = [np.asarray(w, np.int8)[32 * kc:32 * kc + 32,
+                                     16 * nc:16 * nc + 16]
+              .reshape(2, 16, 16).transpose(0, 2, 1)
+              for w, mask in zip(wlist, masks)
+              for kc, nc in (divmod(bit, 8) for bit in range(32)
+                             if mask >> bit & 1)]
+    if not blocks:
+        return np.zeros((0, 2, 16, 16), np.int8)
+    return np.ascontiguousarray(np.stack(blocks))
+
+
+def live_pieces(wlist: Sequence[np.ndarray], bias_lane) -> int:
+    """8-bit mask of the n16 lane pieces that can hold a nonzero: a piece
+    whose lanes are zero columns of every tap matrix and carry zero bias
+    accumulates 0, and both epilogues map 0 to 0, so the kernel writes it
+    as zeros without computing it."""
+    cols = np.stack([np.asarray(m) for m in wlist]).reshape(
+        len(wlist), 128, 8, 16).any(axis=(0, 1, 3))
+    live = cols | np.asarray(bias_lane).reshape(8, 16).any(axis=1)
+    return sum(1 << nc for nc in np.nonzero(live)[0])
+
+
+def kept_blocks(taps: Sequence[Tap], e: Dict) -> int:
+    """The k32 x n16 blocks of a conv's taps that the kernel multiplies
+    (of 32 per tap)."""
+    return sum(bin(e["masks"][t]).count("1") for _, t, _ in taps)
 
 
 def packed_entry(wlist: Sequence[np.ndarray], bias_lane, r1_lane, s1_lane,
                  r2_lane, s2_lane, silu: bool, device) -> Dict:
-    """One banded conv's tensors: the tap matrices for both versions and
-    the per-lane (128,) int32 epilogue constants."""
-    c = {"w_packed": torch.as_tensor(packed_weights(wlist), device=device),
+    """One banded conv's tensors: the tap matrices for both versions (the
+    kernel's kept blocks and float64 for the plain version), their block
+    masks, each matrix's first kept block, the live pieces, and the
+    per-lane (128,) int32 epilogue constants."""
+    masks = block_masks(wlist)
+    n_kept = [bin(m).count("1") for m in masks]
+    c = {"w_blocks": torch.as_tensor(kept_block_weights(wlist, masks),
+                                     device=device),
          "w_f64": torch.as_tensor(np.stack(wlist), dtype=torch.float64,
                                   device=device),
-         "silu": bool(silu)}
+         "masks": masks,
+         "block_start": tuple(int(v) for v in np.cumsum([0] + n_kept[:-1])),
+         "live": live_pieces(wlist, bias_lane), "silu": bool(silu),
+         "plans": {}}
     for f, v in (("b", bias_lane), ("r1", r1_lane), ("s1", s1_lane),
                  ("r2", r2_lane), ("s2", s2_lane)):
         c[f] = torch.as_tensor(np.asarray(v).reshape(128), dtype=torch.int32,
                                device=device)
     return c
+
+
+def _group_bytes(group: Sequence[Tap], masks: Sequence[int]) -> int:
+    span: Dict[int, Tuple[int, int]] = {}
+    for si, _, base in group:
+        lo, hi = span.get(si, (base, base))
+        span[si] = (min(lo, base), max(hi, base))
+    a = sum((TILE_ROWS + hi - lo) * 128 for lo, hi in span.values())
+    return a + BLOCK_BYTES * sum(bin(masks[t]).count("1")
+                                 for t in {t for _, t, _ in group})
+
+
+def launch_plan(taps: Sequence[Tap], e: Dict) -> Dict:
+    """The kernel's shared-memory plan for ``taps`` over ``e``'s matrices,
+    built once per tap list and kept in ``e``. The taps are split, in
+    order, into groups whose bytes fit GROUP_BYTES; a group holds one
+    region per slab (its taps' rows, from the least base to the greatest
+    plus TILE_ROWS, as 8 depth planes of rows x 16 bytes) and the kept
+    blocks of its matrices. Returns int32 tables: ``regions`` (slab, lo,
+    rows, smem, kmask), ``taps`` (A's smem at the tap's base, A's plane
+    stride, its matrix's first block in smem, mask), ``copies`` (first
+    kept block, blocks, smem), ``groups`` (where each group's taps,
+    regions and copies end), and ``group_bytes``, the largest group."""
+    key = tuple(taps)
+    plan = e["plans"].get(key)
+    if plan is not None:
+        return plan
+    masks = e["masks"]
+    groups: List[List[Tap]] = [[]]
+    for tap in taps:
+        if groups[-1] and _group_bytes(groups[-1] + [tap], masks) \
+                > GROUP_BYTES:
+            groups.append([])
+        groups[-1].append(tap)
+    regions, rows_t, copies, ends = [], [], [], []
+    group_bytes = 0
+    for group in groups:
+        off, reg_of, blk_of = 0, {}, {}
+        for si in dict.fromkeys(si for si, _, _ in group):
+            on = [(t, base) for s, t, base in group if s == si]
+            lo = min(b for _, b in on)
+            rows = TILE_ROWS + max(b for _, b in on) - lo
+            kmask = 0
+            for t, _ in on:
+                kmask |= sum(1 << kc for kc in range(4)
+                             if masks[t] >> (8 * kc) & 0xFF)
+            reg_of[si] = (off, lo, rows)
+            regions.append((si, lo, rows, off, kmask))
+            off += rows * 128
+        for t in dict.fromkeys(t for _, t, _ in group):
+            n = bin(masks[t]).count("1")
+            blk_of[t] = off
+            if n:
+                copies.append((e["block_start"][t], n, off))
+                off += n * BLOCK_BYTES
+        for si, t, base in group:
+            roff, lo, rows = reg_of[si]
+            rows_t.append((roff + (base - lo) * 16, rows * 16, blk_of[t],
+                           masks[t] - (1 << 32) * (masks[t] >> 31)))  # int32
+        ends.append((len(rows_t), len(regions), len(copies)))
+        group_bytes = max(group_bytes, off)
+    plan = {name: np.asarray(v, np.int32).reshape(len(v), width)
+            for name, v, width in (("regions", regions, 5),
+                                   ("taps", rows_t, 4), ("copies", copies, 3),
+                                   ("groups", ends, 3))}
+    plan["group_bytes"] = group_bytes
+    e["plans"][key] = plan
+    return plan
 
 
 def packed_call_plain(x_slabs: List[torch.Tensor], taps: Sequence[Tap],
@@ -366,13 +485,13 @@ def _check_packed(x_slabs, taps, e, m: int, sig, qmax: int) -> None:
                              "(B, R, 128), 16-byte aligned")
         if s.device != dev or s.shape[0] != b:
             raise ValueError("packed_conv: slabs differ in device or batch")
-    n_w = e["w_packed"].shape[0]
+    n_w = e["w_f64"].shape[0]
     for si, t, base in taps:
         if not (0 <= si < len(x_slabs) and 0 <= t < n_w and base >= 0
                 and base + m <= x_slabs[si].shape[1]):
             raise ValueError(f"packed_conv: tap {(si, t, base)} outside "
                              f"its slab or matrices (m={m})")
-    if e["w_packed"].device != dev:
+    if e["w_blocks"].device != dev or e["w_f64"].device != dev:
         raise ValueError("packed_conv: weights and slabs on two devices")
     if e["silu"]:
         fused_ops._check_table("packed_conv", sig, qmax)
@@ -410,14 +529,18 @@ def packed_call(x_slabs: List[torch.Tensor], taps: Sequence[Tap], e: Dict,
     def ints(v):
         return (ctypes.c_int * len(v))(*v)
 
+    def table(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), len(a)
+
+    lp = launch_plan(taps, e)
     xs = (ctypes.c_void_p * len(x_slabs))(*[s.data_ptr() for s in x_slabs])
     rc = kernel("packed_conv", "ayq_packed_conv")(
         xs, ints([s.shape[1] for s in x_slabs]), len(x_slabs),
-        ints([t[0] for t in taps]), ints([t[1] for t in taps]),
-        ints([t[2] for t in taps]), len(taps), e["w_packed"].data_ptr(),
+        *table(lp["regions"]), *table(lp["taps"]), *table(lp["copies"]),
+        *table(lp["groups"]), lp["group_bytes"], e["w_blocks"].data_ptr(),
         e["b"].data_ptr(), *[t.data_ptr() for t in consts], tab_lo, tab_n,
         out.data_ptr(), int(silu), b, m, gp2, FRONT_PAD + gp2, r_out_ext,
-        qmax, fused_ops._stream(out))
+        e["live"], qmax, fused_ops._stream(out))
     if rc != 0:
         raise RuntimeError(f"packed_conv launch failed: cudaError_t {rc}")
     fused_ops.LAUNCHES["packed_conv"] += 1

@@ -6,8 +6,8 @@ Phases (each one raises on failure; nothing falls back to the CPU):
   1. print the card's name and power limit; build the Hopper kernels from
      alpha_yolo_quant_torch/runtime/csrc and print the build seconds;
      count the integer tensor-core (IGMMA/IMMA) and __dp4a/__dp2a (IDP)
-     instructions in each library's SASS: the conv libraries must have
-     tensor-core ones;
+     instructions in each library's SASS: the conv and slab-conv
+     libraries must have tensor-core ones and no IDP;
   2. build a yolov8n K=8 full-quant 640 model with random weights from a
      seed, calibrated by the port's own float forward;
   3. hold every kernel against its plain PyTorch version on the card,
@@ -16,8 +16,9 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      plain with CUDA events: the conv kernels at shapes read from the
      graph IR at B=8 and B=128, with torch._int_mm on the same int8
      product as the yardstick, the postconv epilogues on the nibble-split
-     partials of a yolov8n conv, the banded slab conv on six convs of the
-     640 model's slab plan (B=8);
+     partials of a yolov8n conv, the banded slab conv on seven convs of
+     the 640 model's slab plan at B=8 and B=128, with torch._int_mm on
+     the gathered product of its taps as the yardstick;
   4. serve three coalesced requests (4 uint8 + 8 f32 + 4 f32 images)
      through build_int_pipeline on each engine (fused, pallas, packed),
      with the launch counts set to 0 just before each and read just after:
@@ -136,7 +137,7 @@ KERNEL_CASES = [
     ("3x3 s1 head 80->80", "x_result_5_down_1", False, True),
     ("3x3 s1 128->128", "C2F_8_bottle_0", False, True),
 ]
-CONV_LIBS = ("conv1x1", "conv3x3")
+CONV_LIBS = ("conv1x1", "conv3x3", "packed_conv")   # tensor-core kernels
 # (kernel, conv name): the postconv epilogues on the partials of a conv
 POSTCONV_CASES = [("postconv_silu", "Conv_P1"),
                   ("postconv_plain", "x_result_5_down_2")]
@@ -185,7 +186,8 @@ def keep_case(res: dict, name: str, work: float, **fields) -> None:
 def check_tensor_cores() -> None:
     """Phase 1b: integer tensor-core (IGMMA, IMMA) and dot-product (IDP.4A
     = __dp4a, IDP.2A = __dp2a) instructions in each library's SASS
-    (cuobjdump -sass); fails if a conv library has no tensor-core one."""
+    (cuobjdump -sass); fails if a conv library has no tensor-core one or
+    any dot-product one."""
     from alpha_yolo_quant_torch.runtime import _build
 
     tool = _build.cuda_tool("cuobjdump")
@@ -196,9 +198,10 @@ def check_tensor_cores() -> None:
         n = {op: len(re.findall(rf"\b{re.escape(op)}\.", sass))
              for op in ("IGMMA", "IMMA", "IDP.4A", "IDP.2A")}
         log(f"sass {name}: " + " ".join(f"{k}={v}" for k, v in n.items()))
-        if name in CONV_LIBS and n["IGMMA"] + n["IMMA"] == 0:
-            raise AssertionError(f"{name}: no integer tensor-core "
-                                 "instruction in its SASS")
+        if name in CONV_LIBS and (n["IGMMA"] + n["IMMA"] == 0
+                                  or n["IDP.4A"] + n["IDP.2A"] > 0):
+            raise AssertionError(f"{name}: its SASS has no integer "
+                                 "tensor-core instruction, or a __dp4a")
 
 
 def check_every_conv_shape(model, sig, batch: int = 2) -> None:
@@ -338,9 +341,9 @@ def check_postconv_kernels(graph, sig, res, batch: int, reps: int):
 DERIVED = ("s2e:", "s2o:", "eoe:", "eoo:")   # row/group views of a slab
 
 
-def packed_cases(sp):
-    """Six ConvOps of the slab plan: (label, op, silu). Fails if the plan
-    lacks one of the kinds."""
+def packed_cases(sp, live):
+    """Seven ConvOps of the slab plan: (label, op, silu). ``live(op)`` is
+    the op's live-piece mask. Fails if the plan lacks one of the kinds."""
     def keys(op):
         return {k for k, _, _ in op.taps}
 
@@ -356,6 +359,8 @@ def packed_cases(sp):
         ("18 taps two slabs (wide)",
          lambda o: len(o.taps) == 18 and len(keys(o)) == 2),
         ("3-slab concat consumer", lambda o: len(keys(o)) == 3),
+        ("dead n16 pieces, c_slot 128",
+         lambda o: o.geom.c_slot == 128 and live(o) != 255),
     ]
     cases = []
     for label, pred in kinds:
@@ -369,9 +374,13 @@ def packed_cases(sp):
 
 
 def check_packed_kernel(model, plan, res, batch: int, reps: int):
-    """packed_conv on six convs of the 640 slab plan, random int8 input
-    slabs in each conv's geometry, against packed_call_plain."""
-    from alpha_yolo_quant_torch.engine_profile import bound, device_ms, nbytes
+    """packed_conv on seven convs of the 640 slab plan, random int8 input
+    slabs in each conv's geometry, against packed_call_plain; torch._int_mm
+    on the gathered (B*m, T*128) x (T*128, 128) product of the same taps
+    (the gather not timed) as the library yardstick."""
+    from alpha_yolo_quant_torch.engine_profile import (
+        device_ms, packed_bound,
+    )
     import torch
 
     from alpha_yolo_quant_torch.runtime import packed_conv as pc
@@ -381,7 +390,8 @@ def check_packed_kernel(model, plan, res, batch: int, reps: int):
     sp = slab_plan(model, plan)
     sig = plan["sig_lut"]
     gen = torch.Generator(device=plan["device"]).manual_seed(7)
-    for label, op, silu in packed_cases(sp):
+    ex0 = SlabExec(sp, model, plan, {}, model.cfg.qmax)
+    for label, op, silu in packed_cases(sp, lambda o: ex0.entry(o)["live"]):
         ex = SlabExec(sp, model, plan, {}, model.cfg.qmax)
         for k, _, _ in op.taps:
             base = k.split(":", 1)[1] if k.startswith(DERIVED) else k
@@ -398,21 +408,27 @@ def check_packed_kernel(model, plan, res, batch: int, reps: int):
         plain_ms = device_ms(lambda: pc.packed_call_plain(*args),
                            max(2, reps // 5))
         m = op.h_out * op.geom.gp2
-        nnz = sum(int(np.count_nonzero(op.wlist[t])) for _, t, _ in taps)
-        macs = batch * m * nnz
-        bound_ms, bound_by = bound(
-            nbytes(*x_slabs, got, e["w_packed"], e["b"], e["r1"], e["s1"],
-                   e["r2"], e["s2"]), 2 * macs)
+        a8 = torch.cat([x_slabs[si][:, base:base + m] for si, _, base in taps],
+                       dim=2).reshape(batch * m, 128 * len(taps))
+        w8 = e["w_f64"][[t for _, t, _ in taps]].reshape(
+            128 * len(taps), 128).to(torch.int8)
+        lib_ms = device_ms(lambda: torch._int_mm(a8, w8), reps)
+        del a8, w8
+        bound_ms, bound_by, macs = packed_bound(x_slabs, taps, e, got, m)
+        kept = pc.kept_blocks(taps, e) / (32 * len(taps))
         g = op.geom
         shape = (f"B={batch} {op.name} {len(taps)} taps over "
                  f"{len(x_slabs)} slabs, c_slot {g.c_slot} p={g.p} "
                  f"{g.h}px m={m} {'silu int8' if silu else 'raw int32'}")
         log(f"kernel packed_conv [{label}] {shape}: max_abs_err={err} "
             f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"_int_mm_ms={lib_ms:.4f} ({batch * m}x{128 * len(taps)}x128, "
+            f"gather not timed) kept_blocks={kept:.3f} "
+            f"live_pieces={bin(e['live']).count('1')}/8 "
             f"useful GMAC/s={macs / ms / 1e6:.1f}")
         keep_case(res, "packed_conv", macs, max_abs_err=err, ms=ms,
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                  library_ms=None, shape=shape)
+                  library_ms=lib_ms, shape=shape)
 
 
 def check_kernels(model, plan, batch: int, reps: int = 10):
@@ -441,7 +457,8 @@ def check_kernels(model, plan, batch: int, reps: int = 10):
               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
               library_ms=None, shape=f"{sig.values.numel()} entries")
     check_postconv_kernels(graph, sig, res, batch, reps)
-    check_packed_kernel(model, plan, res, batch, reps)
+    for b in (batch, 128):
+        check_packed_kernel(model, plan, res, b, reps)
     return res
 
 

@@ -9,6 +9,8 @@ installed, without the repo's conftest.py (which imports jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+from typing import List
+
 import numpy as np
 import pytest
 import torch
@@ -212,6 +214,93 @@ def test_packed_conv_kernel_equals_plain(cuda, case):
     want = run(*cpu, **kw_cpu)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
+
+
+def block_sparse(rng, keep: float, n: int = 1) -> List[np.ndarray]:
+    """n random int8 (128, 128) tap matrices whose k32 x n16 blocks are
+    each nonzero with probability ``keep``, with zeros inside kept blocks
+    too."""
+    out = []
+    for _ in range(n):
+        w = rng.integers(-127, 128, (128, 128)) * (rng.random((128, 128))
+                                                   < 0.7)
+        blocks = rng.random((4, 1, 8, 1)) < keep
+        out.append((w.reshape(4, 32, 8, 16) * blocks).reshape(128, 128)
+                   .astype(np.int8))
+    return out
+
+
+# Direct packed_call cases at the kernel's edges: (kind, silu). dense: no
+# block skipped (three tap groups); zero_tap: one tap matrix all zeros;
+# dead: n16 pieces with zero columns in every matrix and zero bias, and one
+# with a bias; ragged: m = 35, under one 128-row tile (the others have
+# m = 288, not a multiple of it either); limits: 32 taps over 8 slabs;
+# extreme+/-: every input +127 and every weight +-127 over 32 taps, the
+# accumulator's largest magnitude
+PACKED_EDGES = [("dense", True), ("zero_tap", False), ("dead", True),
+                ("ragged", True), ("limits", False), ("extreme+", False),
+                ("extreme-", False)]
+
+
+def packed_edge_case(kind: str, silu: bool, device, seed: int = 0):
+    """(x_slabs, taps, entry, gp2, h_out, sig) of one PACKED_EDGES case."""
+    rng = np.random.default_rng(seed + sum(map(ord, kind)))
+    g, h_out, batch = {"ragged": (5, 5, 3)}.get(kind, (16, 16, 2))
+    gp2 = g + 2
+    r_ext = pc.rows_ext(h_out + 2, gp2)
+    n_slabs = 8 if kind in ("limits", "extreme+", "extreme-") else 1
+    s1_bases = [pc.FRONT_PAD + dy * gp2 + gg - 1 for dy in range(3)
+                for gg in range(3)]
+    if n_slabs == 8:     # 32 taps: every slab at four of the s1 bases
+        taps = [(t % 8, t, s1_bases[t % 9]) for t in range(32)]
+    elif kind == "zero_tap":
+        taps = [(0, t, s1_bases[3 * t + 1]) for t in range(3)]
+    else:
+        taps = [(0, t, base) for t, base in enumerate(s1_bases)]
+    if kind == "dense":
+        wl = [(rng.integers(1, 128, (128, 128)) * rng.choice([-1, 1], (
+            128, 128))).astype(np.int8) for _ in taps]
+    elif kind.startswith("extreme"):
+        sign = 1 if kind == "extreme+" else -1
+        wl = [np.full((128, 128), 127 * sign, np.int8) for _ in taps]
+    else:
+        wl = block_sparse(rng, 0.4, len(taps))
+        if kind == "zero_tap":
+            wl[1][:] = 0
+    bias = rng.integers(-900, 900, 128)
+    if kind == "dead":   # piece 6: zero columns but a bias, so live
+        for w in wl:
+            w.reshape(128, 8, 16)[:, [1, 4, 5, 6]] = 0
+        bias.reshape(8, 16)[[1, 4, 5]] = 0
+    if kind.startswith("extreme"):
+        xs = [torch.full((batch, r_ext, 128), 127, dtype=torch.int8)
+              for _ in range(n_slabs)]
+        bias[:] = 2 ** 15 * (1 if kind == "extreme+" else -1)
+    else:
+        xs = [torch.as_tensor(rng.integers(-127, 128, (batch, r_ext, 128)),
+                              dtype=torch.int8) for _ in range(n_slabs)]
+    s1 = rng.integers(18, 22, 128)
+    e = pc.packed_entry(wl, bias, rng.integers(64, 256, 128), s1,
+                        rng.integers(64, 256, 128), s1 + 7, silu, device)
+    return ([x.to(device) for x in xs], taps, e, gp2, h_out,
+            DeviceLut(sigmoid_lut(6.0, 8), device))
+
+
+@pytest.mark.parametrize("kind,silu", PACKED_EDGES,
+                         ids=[k for k, _ in PACKED_EDGES])
+def test_packed_call_edges_equal_plain(cuda, kind, silu):
+    x_slabs, taps, e, gp2, h_out, sig = packed_edge_case(kind, silu, cuda)
+    before = fused_ops.LAUNCHES["packed_conv"]
+    got = pc.packed_call(x_slabs, taps, e, gp2, h_out, sig)
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES["packed_conv"] == before + 1
+    cx, ctaps, ce, _, _, csig = packed_edge_case(kind, silu, "cpu")
+    want = pc.packed_call(cx, ctaps, ce, gp2, h_out, csig)
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    if kind.startswith("extreme"):
+        sign = 1 if kind == "extreme+" else -1
+        top = 32 * 128 * 127 * 127 + 2 ** 15
+        assert int((got * sign).max()) == top and int(got.abs().max()) == top
 
 
 def _card_model(full_quant=True):

@@ -21,6 +21,7 @@ from alpha_yolo_quant_torch.ops.lut import DeviceLut
 from alpha_yolo_quant_torch.quantize.luts import sigmoid_lut
 from alpha_yolo_quant_torch.runtime import packed_conv as pc
 from alpha_yolo_quant_torch.runtime.slabforward import build_slab_plan
+from test_torch_gpu import PACKED_EDGES, block_sparse, packed_edge_case
 from test_torch_model_build import assert_same, build_pair
 
 RNG = np.random.default_rng(3)
@@ -213,13 +214,284 @@ def test_packed_call_rejects_taps_outside_the_slab():
 
 
 def test_packed_weights_layout():
-    wl = [RNG.integers(-127, 128, (128, 128)).astype(np.int8)
-          for _ in range(2)]
-    words = pc.packed_weights(wl)
-    assert words.shape == (2, 32, 128) and words.dtype == np.int32
-    back = words[..., None].view(np.int8)            # (2, 32, 128, 4)
-    np.testing.assert_array_equal(back.transpose(0, 1, 3, 2).reshape(
-        2, 128, 128), np.stack(wl))
+    """The kernel's B operand: the kept k32 x n16 blocks of each W_t, in
+    bit order, as (N, K) K-major 16-byte depth planes, [i, p, n, j] =
+    W[32 kc + 16 p + j, 16 nc + n]; round trip to the matrices."""
+    wl = [RNG.integers(-127, 128, (128, 128)).astype(np.int8),
+          np.zeros((128, 128), np.int8), block_sparse(RNG, 0.3)[0]]
+    masks = pc.block_masks(wl)
+    wb = pc.kept_block_weights(wl, masks)
+    n = [bin(m).count("1") for m in masks]
+    assert wb.shape == (sum(n), 2, 16, 16) and wb.dtype == np.int8
+    assert n[:2] == [32, 0] and wb.flags.c_contiguous
+    np.testing.assert_array_equal(wb[9, 1, 3], wl[0][48:64, 16 + 3])
+    np.testing.assert_array_equal(_weights_from_blocks(wb, masks),
+                                  np.stack(wl))
+    e = pc.packed_entry(wl, *_lanes(pc.make_plan(16, 16, 1, 32), 16, False),
+                        False, "cpu")
+    assert e["block_start"] == (0, 32, 32)
+    np.testing.assert_array_equal(
+        _weights_from_blocks(e["w_blocks"].numpy(), e["masks"]),
+        e["w_f64"].numpy())
+
+
+def _weights_from_blocks(wb, masks):
+    """Kept blocks (n, 2, 16, 16) and masks -> (T, 128, 128) W[k, n]."""
+    w = np.zeros((len(masks), 128, 128), np.int8)
+    i = 0
+    for t, mask in enumerate(masks):
+        for bit in range(32):
+            if mask >> bit & 1:
+                kc, nc = divmod(bit, 8)
+                w[t, 32 * kc:32 * kc + 32, 16 * nc:16 * nc + 16] = \
+                    wb[i].transpose(0, 2, 1).reshape(32, 16)
+                i += 1
+    assert i == len(wb)
+    return w
+
+
+def masked_call_np(x_slabs, taps, e, gp2, h_out, sig, qmax=127):
+    """Numpy emulation of the Hopper kernel through its launch plan: per
+    128-row tile and tap group, a shared-memory byte array that starts as
+    noise, the regions' depth planes and the kept blocks copied in where
+    the plan puts them, and one int64 k32 x n16 product per set mask bit,
+    read through the tap's A address and plane stride and the block's
+    place; pieces outside ``live`` written as zeros without an epilogue;
+    zero pad-group, head and tail rows."""
+    m = h_out * gp2
+    head = pc.FRONT_PAD + gp2
+    r_out_ext = pc.rows_ext(h_out + 2, gp2)
+    b = x_slabs[0].shape[0]
+    lp = pc.launch_plan(taps, e)
+    xs = [x.numpy() for x in x_slabs]
+    wb = e["w_blocks"].numpy().reshape(-1)
+    noise = np.random.default_rng(0)
+    rows = np.arange(pc.TILE_ROWS)[:, None] * 16 + np.arange(16)
+    acc = np.zeros((b, r_out_ext + pc.TILE_ROWS, 128), np.int64)
+    for o0 in range(0, r_out_ext, pc.TILE_ROWS):
+        r0 = o0 - head
+        if r0 + pc.TILE_ROWS <= 0 or r0 >= m:
+            continue
+        t0 = reg0 = cp0 = 0
+        for t_end, reg_end, cp_end in lp["groups"]:
+            smem = noise.integers(-128, 128, (b, lp["group_bytes"]),
+                                  dtype=np.int8)
+            for si, lo, n, off, kmask in lp["regions"][reg0:reg_end]:
+                idx = r0 + lo + np.arange(n)
+                ok = (idx >= 0) & (idx < xs[si].shape[1])
+                a = np.zeros((b, n, 128), np.int8)
+                a[:, ok] = xs[si][:, idx[ok]]
+                planes = a.reshape(b, n, 8, 16).transpose(0, 2, 1, 3)
+                for kc in range(8):
+                    if kmask >> (kc // 2) & 1:
+                        smem[:, off + kc * n * 16:off + (kc + 1) * n * 16] = \
+                            planes[:, kc].reshape(b, -1)
+            for src, n, dst in lp["copies"][cp0:cp_end]:
+                smem[:, dst:dst + n * pc.BLOCK_BYTES] = \
+                    wb[src * pc.BLOCK_BYTES:(src + n) * pc.BLOCK_BYTES]
+            for a_off, lbo, b_off, mask in lp["taps"][t0:t_end]:
+                mask = int(mask) & 0xFFFFFFFF
+                for bit in range(32):
+                    if not mask >> bit & 1:
+                        continue
+                    kc, nc = divmod(bit, 8)
+                    a = np.concatenate(
+                        [smem[:, a_off + (2 * kc + p) * lbo + rows]
+                         for p in range(2)], axis=2).astype(np.int64)
+                    blk = b_off + bin(mask & ((1 << bit) - 1)).count("1") \
+                        * pc.BLOCK_BYTES
+                    w = smem[0, blk:blk + pc.BLOCK_BYTES].reshape(2, 16, 16)
+                    acc[:, o0:o0 + pc.TILE_ROWS, 16 * nc:16 * nc + 16] += \
+                        a @ w.transpose(0, 2, 1).reshape(32, 16).astype(
+                            np.int64)
+            t0, reg0, cp0 = t_end, reg_end, cp_end
+    acc = acc[:, head:head + m] + e["b"].numpy()
+    out = (pc.fused_ops.silu_epilogue_plain(torch.as_tensor(acc), e, sig,
+                                            qmax).numpy()
+           if e["silu"] else acc.astype(np.int32))
+    live = np.repeat([e["live"] >> nc & 1 for nc in range(8)], 16)
+    u = np.arange(m) % gp2
+    out = out * live * ((u >= 1) & (u <= gp2 - 2))[:, None]
+    full = np.zeros((b, r_out_ext, 128), out.dtype)
+    full[:, head:head + m] = out
+    return full
+
+
+def test_launch_plan_groups_fit():
+    """Taps whose regions and kept blocks pass GROUP_BYTES split into
+    groups in order, each within it; a region spans its taps' bases."""
+    x_slabs, taps, e, gp2, h_out, _ = packed_edge_case("limits", False, "cpu")
+    lp = pc.launch_plan(taps, e)
+    assert lp is pc.launch_plan(taps, e)
+    assert len(lp["groups"]) > 1 and lp["group_bytes"] <= pc.GROUP_BYTES
+    assert lp["groups"][-1].tolist() == [32, len(lp["regions"]),
+                                         len(lp["copies"])]
+    t0 = reg0 = 0
+    for t_end, reg_end, _ in lp["groups"]:
+        group = taps[t0:t_end]
+        assert pc._group_bytes(group, e["masks"]) <= pc.GROUP_BYTES
+        for si, lo, n, _, _ in lp["regions"][reg0:reg_end]:
+            bases = [b for s, _, b in group if s == si]
+            assert lo == min(bases) and n == 128 + max(bases) - lo
+        t0, reg0 = t_end, reg_end
+    _, taps1, e1, _, _, _ = packed_edge_case("dense", True, "cpu")
+    assert len(pc.launch_plan(taps1, e1)["groups"]) == 3   # 9 x 16 KiB
+    _, taps1, e1, _, _, _ = packed_edge_case("ragged", True, "cpu")
+    assert len(pc.launch_plan(taps1, e1)["groups"]) == 1
+
+
+@pytest.fixture(scope="module")
+def slab_model():
+    """The 64-px yolov8n K=8 full-quant model of the port, its device plan
+    on the CPU and its slab plan's ConvOps."""
+    from alpha_yolo_quant_torch.engine_profile import build_model
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        device_plan, slab_plan,
+    )
+
+    model = build_model(64, "cpu")
+    plan = device_plan(model, "cpu")
+    sp = slab_plan(model, plan)
+    ops = [op for v in sp.node_ops.values() for op in v
+           if type(op).__name__ == "ConvOp"]
+    assert len(ops) == sp.n_convs > 30
+    return model, plan, sp, ops
+
+
+def _conv_args(model, plan, sp, op, seed):
+    """Random int8 input slabs in a ConvOp's geometry (B=2), resolved to
+    the (slabs, taps) the kernel takes, and the op's entry."""
+    from alpha_yolo_quant_torch.runtime.slabforward import SlabExec
+
+    rng = np.random.default_rng(seed)
+    ex = SlabExec(sp, model, plan, {}, model.cfg.qmax)
+    for k, _, _ in op.taps:
+        base = (k.split(":", 1)[1]
+                if k.startswith(("s2e:", "s2o:", "eoe:", "eoo:")) else k)
+        if base not in ex.slabs:
+            ex.slabs[base] = torch.as_tensor(rng.integers(
+                -127, 128, (2, sp.geoms[base].rows_ext, 128)),
+                dtype=torch.int8)
+    x_slabs, taps = ex.conv_inputs(op)
+    return x_slabs, taps, ex.entry(op)
+
+
+@pytest.mark.parametrize("silu", [True, False], ids=["silu", "raw"])
+def test_masked_product_equals_plain_on_slab_plan(slab_model, silu):
+    """On every ConvOp of the 64-px slab plan, the kernel's masked product
+    (only kept blocks, dead pieces as zeros) equals packed_call_plain and
+    so the dense banded product, bit for bit."""
+    model, plan, sp, ops = slab_model
+    sig = plan["sig_lut"]
+    skipped = dead = 0
+    for i, op in enumerate(ops):
+        x_slabs, taps, e = _conv_args(model, plan, sp, op, seed=i)
+        e = dict(e, silu=silu)
+        want = pc.packed_call_plain(x_slabs, taps, e, op.geom.gp2, op.h_out,
+                                    sig, model.cfg.qmax)
+        got = masked_call_np(x_slabs, taps, e, op.geom.gp2, op.h_out, sig,
+                             model.cfg.qmax)
+        np.testing.assert_array_equal(got, want.numpy(), err_msg=op.name)
+        skipped += 32 * len(taps) - pc.kept_blocks(taps, e)
+        dead += 8 - bin(e["live"]).count("1")
+    assert skipped > 0 and dead > 0, "the plan must exercise both skips"
+
+
+def test_masked_product_equals_oracle():
+    """The masked emulation against the JAX package's numpy int64 oracle
+    packed_conv_np on a 3x3 stride-1 conv (raw accumulators)."""
+    cin = cout = 16
+    hw = 32
+    plan = pc.make_plan(cin, cout, 1, hw)
+    x = RNG.integers(-127, 128, (2, cin, hw, hw)).astype(np.int64)
+    mats = pc.packed_weight_mats(_weights(cin, cout, 3), plan)
+    lanes = _lanes(plan, cout, False)
+    gp2 = plan.g + 2
+    taps = [(0, 3 * dy + gg, pc.FRONT_PAD + dy * gp2 + gg - 1)
+            for dy in range(3) for gg in range(3)]
+    e = pc.packed_entry(list(mats.reshape(9, 128, 128)), *lanes, False,
+                        "cpu")
+    assert pc.kept_blocks(taps, e) < 32 * 9
+    out = masked_call_np([pc.pack_tensor(_nhwc(x), plan)], taps, e, gp2, hw,
+                         None)
+    _assert_equals_oracle(torch.as_tensor(out), x, mats, plan, hw, lanes[0])
+
+
+@pytest.mark.parametrize("kind,silu", PACKED_EDGES,
+                         ids=[k for k, _ in PACKED_EDGES])
+def test_masked_product_equals_plain_on_edges(kind, silu):
+    """The GPU tests' edge cases (dense, an all-zero tap, dead pieces,
+    m under one tile, 32 taps over 8 slabs, accumulator extremes) through
+    the masked emulation and the plain version on the CPU."""
+    x_slabs, taps, e, gp2, h_out, sig = packed_edge_case(kind, silu, "cpu")
+    want = pc.packed_call(x_slabs, taps, e, gp2, h_out, sig)
+    got = masked_call_np(x_slabs, taps, e, gp2, h_out, sig)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _blocks_brute(w):
+    """{(kc, nc)} of the k32 x n16 blocks of w with a nonzero, by loops."""
+    return {(kc, nc) for kc in range(4) for nc in range(8)
+            if any(w[k, n] for k in range(32 * kc, 32 * kc + 32)
+                   for n in range(16 * nc, 16 * nc + 16))}
+
+
+def test_block_masks_keep_exactly_the_nonzero_blocks(slab_model):
+    """A mask bit is set iff its block holds a nonzero: over every tap
+    matrix of the 64-px slab plan, and matrices with one nonzero at each
+    block's corners, none at all, and none zero."""
+    _, _, _, ops = slab_model
+    one = []
+    for kc, nc, dk, dn in [(0, 0, 0, 0), (3, 7, 31, 15), (1, 5, 31, 0),
+                           (2, 2, 0, 15)]:
+        w = np.zeros((128, 128), np.int8)
+        w[32 * kc + dk, 16 * nc + dn] = -1
+        one.append(w)
+    mats = [w for op in ops for w in op.wlist] + one + [
+        np.zeros((128, 128), np.int8), np.ones((128, 128), np.int8)]
+    masks = pc.block_masks(mats)
+    for w, mask in zip(mats, masks):
+        got = {(b // 8, b % 8) for b in range(32) if mask >> b & 1}
+        assert got == _blocks_brute(np.asarray(w))
+    assert masks[-2:] == (0, 2 ** 32 - 1)
+    assert masks[-6] == 1 and masks[-5] == 1 << 31
+
+
+def test_live_pieces_need_a_column_or_a_bias():
+    """A piece is dead only if it has zero columns in every matrix AND
+    zero bias: the dead edge case keeps its bias-only piece 6 live."""
+    _, _, e, _, _, _ = packed_edge_case("dead", True, "cpu")
+    assert e["live"] == 0b11001101
+    w = np.zeros((128, 128), np.int8)
+    w[5, 40] = 1
+    bias = np.zeros(128, np.int64)
+    bias[127] = -3
+    assert pc.live_pieces([w, np.zeros_like(w)], bias) == 0b10000100
+    assert pc.live_pieces([np.zeros_like(w)], np.zeros(128)) == 0
+
+
+def test_dead_pieces_map_to_zero(slab_model):
+    """The ground for skipping dead pieces: on every ConvOp of the 64-px
+    plan, a dead piece has zero bias and zero columns in every tap matrix,
+    and the SiLU epilogue with the plan's lane constants maps acc 0 to 0
+    on every lane (the raw epilogue trivially)."""
+    model, plan, sp, ops = slab_model
+    n_dead = 0
+    for op in ops:
+        ln = sp.lanes[op.name]
+        e = pc.packed_entry(op.wlist, ln["bias"], ln["r1"], ln["s1"],
+                            ln["r2"], ln["s2"], True, "cpu")
+        zero = pc.fused_ops.silu_epilogue_plain(
+            torch.zeros((1, 128), dtype=torch.int64), e, plan["sig_lut"],
+            model.cfg.qmax)
+        assert not zero.any(), op.name
+        w = np.stack(op.wlist).reshape(len(op.wlist), 128, 8, 16)
+        for nc in range(8):
+            if not e["live"] >> nc & 1:
+                n_dead += 1
+                assert not w[:, :, nc].any()
+                assert not np.asarray(ln["bias"]).reshape(8, 16)[nc].any()
+    assert n_dead > 0
 
 
 def _allow(name):
