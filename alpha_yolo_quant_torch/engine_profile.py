@@ -42,10 +42,11 @@ PORT_KERNELS = {"conv_wgmma": "conv1x1/conv3x3", "postconv_kernel":
                 "sigma_probe_kernel": "sigma_probe"}
 
 
-def build_model(image_size: int = 640, device="cuda"):
-    """yolov8n K=8 full quant, random weights from seed 0, calibrated by
-    the port's float forward on two seeded images (the model chip_smoke.py
-    serves)."""
+def build_model(image_size: int = 640, device="cuda",
+                full_quant: bool = True):
+    """yolov8n K=8 full quant (or partial), random weights from seed 0,
+    calibrated by the port's float forward on two seeded images (the model
+    chip_smoke.py serves)."""
     from alpha_yolo_quant_torch.config import QuantConfig
     from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
     from alpha_yolo_quant_torch.models.params import init_params
@@ -56,7 +57,7 @@ def build_model(image_size: int = 640, device="cuda"):
         build_quantized_model,
     )
 
-    cfg = QuantConfig(model="yolov8n", k=8, full_quant=True,
+    cfg = QuantConfig(model="yolov8n", k=8, full_quant=full_quant,
                       image_size=image_size)
     graph = build_yolov8_graph(cfg)
     params = init_params(graph, seed=0)

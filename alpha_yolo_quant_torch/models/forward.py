@@ -3,7 +3,7 @@ alpha_yolo_quant_tpu/models/forward.py)."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,13 +17,16 @@ from alpha_yolo_quant_torch.ops.nn import (
 
 
 def forward_float(graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
-                  x: torch.Tensor, collect_taps: bool = False
+                  x: torch.Tensor, collect_taps: bool = False,
+                  capture: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Run the fp32 model on NCHW images.
 
     Returns (outputs, taps): the six raw head tensors by role, and with
     collect_taps the per-image max-abs of every conv's pre-activation
-    output by tap name (plus 'start' for the input).
+    output by tap name (plus 'start' for the input). ``capture``: a dict
+    whose keys are tap names; each is set to that conv's whole
+    pre-activation output.
 
     On CUDA this turns TF32 off for convolutions and matmuls
     (torch.backends.cudnn.allow_tf32 and
@@ -48,6 +51,8 @@ def forward_float(graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
             out = conv2d_f32(env[node.src], p["w"], p["b"], node.stride,
                              node.padding)
             record(node.tap, out)
+            if capture is not None and node.tap in capture:
+                capture[node.tap] = out
             env[node.dst] = silu(out) if node.silu else out
         elif isinstance(node, SplitNode):
             h = env[node.src].shape[1] // 2

@@ -1,12 +1,11 @@
-"""Float parameters: random initialisation, the checkpoint slot order, and
-the move onto a torch device.
+"""Float parameters: random initialisation, checkpoint loading, BatchNorm
+fusion, and the move onto a torch device.
 
 Fused parameters are a flat dict  key -> {'w': f32[O,I,kh,kw], 'b': f32[O]}
 (plus 'dfl' -> {'w': f32[1,16,1,1]}), keyed by the reference state-dict
-prefixes. ``init_params``, ``raw_param_slots`` and ``load_raw_from_values``
-are the port's own copies of alpha_yolo_quant_tpu/models/params.py, numpy
-logic unchanged: the same seed gives the same arrays in both packages,
-which is how weights are carried across.
+prefixes. Everything but ``params_to_torch`` is the port's own copy of
+alpha_yolo_quant_tpu/models/params.py, numpy logic unchanged: the same seed
+or checkpoint gives the same arrays in both packages.
 """
 
 from __future__ import annotations
@@ -17,6 +16,8 @@ import numpy as np
 import torch
 
 from alpha_yolo_quant_torch.models.graph import ConvNode, Graph
+
+BN_EPS = 1e-3  # reference stage_1.py:37 (BatchNorm2d eps=0.001)
 
 
 def conv_has_bn(node: ConvNode) -> bool:
@@ -174,6 +175,88 @@ def init_params(graph: Graph, seed: int = 0) -> Dict:
                             "b": b.astype(np.float32)}
     params["dfl"] = {"w": np.arange(16, dtype=np.float32).reshape(1, 16, 1, 1)}
     return params
+
+
+def fuse_batchnorm(graph: Graph, raw: Dict) -> Dict:
+    """w' = gamma*w/sqrt(var+eps); b' = beta + gamma*(-mean)/sqrt(var+eps)
+    per output channel (reference utils/batch_norm.py:25-36, eps=0.001).
+
+    Computed in FLOAT32 with the reference's exact expression order
+    (multiply by gamma, then divide by the f32 sqrt, no reciprocal
+    hoist): the reference fuses the f32 state dict in f32 numpy, and a
+    f64 round-trip flips one-ULP ties in the fused weights, which the
+    quantizer then amplifies into off-by-one int weights."""
+    fused: Dict[str, Dict[str, np.ndarray]] = {}
+    for node in graph.convs():
+        p = raw[node.key]
+        w = np.asarray(p["w"], np.float32)
+        if conv_has_bn(node):
+            g = np.asarray(p["gamma"], np.float32)
+            be = np.asarray(p["beta"], np.float32)
+            mu = np.asarray(p["mean"], np.float32)
+            var = np.asarray(p["var"], np.float32)
+            den = np.sqrt(var + BN_EPS)          # f32 (weak python eps)
+            fused[node.key] = {
+                "w": (g[:, None, None, None] * w) / den[:, None, None,
+                                                        None],
+                "b": ((g * (-mu)) / den) + be,
+            }
+        else:
+            fused[node.key] = {"w": w,
+                               "b": np.asarray(p["b"], np.float32)}
+    fused["dfl"] = {"w": np.asarray(raw["dfl"]["w"], np.float32)}
+    return fused
+
+
+def init_raw_params(graph: Graph, seed: int = 0) -> Dict:
+    """Random UNFUSED params (conv + batchnorm stats) for testing the fusion
+    path itself."""
+    rng = np.random.default_rng(seed)
+    raw: Dict[str, Dict[str, np.ndarray]] = {}
+    for node in graph.convs():
+        fan_in = node.cin * node.kernel * node.kernel
+        # variance-conserving gain, see init_params
+        w = rng.normal(0.0, np.sqrt(1.0 / fan_in),
+                       size=(node.cout, node.cin, node.kernel,
+                             node.kernel)).astype(np.float32)
+        if conv_has_bn(node):
+            raw[node.key] = {
+                "w": w,
+                "gamma": rng.uniform(0.5, 1.5, node.cout).astype(np.float32),
+                "beta": rng.normal(0, 0.1, node.cout).astype(np.float32),
+                "mean": rng.normal(0, 0.2, node.cout).astype(np.float32),
+                "var": rng.uniform(0.2, 1.0, node.cout).astype(np.float32),
+                "nbt": np.array(0, np.int64),
+            }
+        else:
+            raw[node.key] = {"w": w,
+                             "b": rng.normal(0, 0.02, node.cout).astype(
+                                 np.float32)}
+    raw["dfl"] = {"w": np.arange(16, dtype=np.float32).reshape(1, 16, 1, 1)}
+    return raw
+
+
+def load_torch_checkpoint(graph: Graph, path: str) -> Dict:
+    """Load a checkpoint file and return RAW params.
+
+    Accepts either a plain state_dict of tensors (torch.save of an
+    OrderedDict) or, when the ultralytics package is importable, a full
+    ultralytics YOLO checkpoint. ``torch.load(weights_only=True)`` is tried
+    first; only a file it refuses is unpickled in full, which runs the
+    file's code, so load only checkpoints you trust. The remap is
+    positional, like the reference's (stage_1.py:775-783)."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if isinstance(obj, dict) and "model" in obj and hasattr(obj["model"],
+                                                            "state_dict"):
+        obj = obj["model"].float().state_dict()
+    values = [v.detach().cpu().numpy() if hasattr(v, "detach") else
+              np.asarray(v) for v in obj.values()]
+    return load_raw_from_values(graph, values)
 
 
 def params_to_torch(params: Dict,

@@ -23,13 +23,21 @@ class NmsParams:
     Quantized mode: boxes in anchor-scale units, scores in 16-bit sigmoid
     (or pre-sigmoid requantized) integer units, ``plus_one`` the +1 area
     term in those units; boxes and scores are divided by ``box_scale`` /
-    ``score_scale`` on the way out."""
+    ``score_scale`` on the way out.
+
+    agnostic: suppress across classes (no per-class box offset).
+    trunc_boxes: truncate the xyxy candidate boxes toward zero before NMS,
+    the deployed stage-8 runtime's quirk (reference
+    stage_8_torch_full_quant.py:316 ``.to(torch.int)``); its numpy twin
+    (utils/bbox_cls_functions.py:209) does not, and that is the default.
+    """
 
     conf_thres: float = 0.25
     iou_thres: float = 0.45
     max_det: int = 300
     max_nms: int = 30000
     max_wh: float = 7680.0
+    agnostic: bool = False
     # keep only the top-k scores before NMS (None = all candidates); the
     # reference q_NMS truncates to 1000
     pre_topk: int = None  # type: ignore[assignment]
@@ -37,6 +45,7 @@ class NmsParams:
     box_scale: float = 1.0
     score_scale: float = 1.0
     plus_one: float = 1.0
+    trunc_boxes: bool = False
 
 
 def quantized_iou_multiplier(iou_thres: float) -> float:
@@ -184,7 +193,9 @@ def non_max_suppression(preds, params: NmsParams = NmsParams(),
     p = params
     boxes, conf, cls, valid = _select_candidates(
         preds, p.max_nms, p.conf_thres, p.pre_topk, int_scores=p.quantized)
-    offset = cls * p.max_wh
+    if p.trunc_boxes:
+        boxes = torch.trunc(boxes)
+    offset = cls * (0.0 if p.agnostic else p.max_wh)
     keep = greedy_keep_sorted(boxes + offset[..., None], valid, p.iou_thres,
                               p.max_det, p.plus_one, p.quantized)
     b, m = conf.shape

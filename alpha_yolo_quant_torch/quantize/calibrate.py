@@ -1,5 +1,6 @@
-"""Activation calibration: capture and statistics reduction (counterpart
-of alpha_yolo_quant_tpu/quantize/calibrate.py, whose module imports jax).
+"""Activation calibration: capture, activation dumps and statistics
+reduction (counterpart of alpha_yolo_quant_tpu/quantize/calibrate.py,
+whose module imports jax).
 
 Reduction modes (reference utils/stage_5_common_func.py:11-26): max | mode
 | median | std (mean + 3*sample-std) | n=<i> (i-th largest unique) |
@@ -8,6 +9,10 @@ min_mae (sigma-coefficient search, reference stage_5.py:34-89).
 
 from __future__ import annotations
 
+import gzip
+import os
+import pickle
+import re
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
@@ -22,7 +27,9 @@ from alpha_yolo_quant_torch.models.params import params_to_torch
 def collect_stats(graph: Graph, params: Dict, batches: Iterable[np.ndarray],
                   device="cuda") -> Dict[str, List[float]]:
     """Run calibration batches on ``device`` (the card unless the caller
-    names another); returns tap -> list of per-image maxima.
+    names another); returns tap -> list of per-image maxima, taps in
+    sorted order like the JAX function's (its tap dict comes back from the
+    device with sorted keys), so both packages write the same max_a files.
     ``params``: the float params dict, numpy or torch."""
     tp = params_to_torch(params, device)
     records: Dict[str, List[float]] = {}
@@ -30,9 +37,69 @@ def collect_stats(graph: Graph, params: Dict, batches: Iterable[np.ndarray],
         x = torch.as_tensor(np.asarray(batch), dtype=torch.float32,
                             device=device)
         _, taps = forward_float(graph, tp, x, collect_taps=True)
-        for name, v in taps.items():
-            records.setdefault(name, []).extend(v.cpu().numpy().tolist())
+        for name in sorted(taps):
+            records.setdefault(name, []).extend(
+                taps[name].cpu().numpy().tolist())
     return records
+
+
+@torch.no_grad()
+def collect_samples(graph: Graph, params: Dict,
+                    batches: Iterable[np.ndarray], taps: List[str],
+                    device="cuda") -> Dict[str, np.ndarray]:
+    """Full pre-activation tensors (f32, NCHW, on the host) of the given
+    taps over all batches, run on ``device``: the analog of the
+    reference's gzip'd per-layer activation dumps used by the min_mae
+    search (utils/save_weights.py:13-21)."""
+    tp = params_to_torch(params, device)
+    out: Dict[str, List[np.ndarray]] = {t: [] for t in taps}
+    for batch in batches:
+        x = torch.as_tensor(np.asarray(batch), dtype=torch.float32,
+                            device=device)
+        captured = dict.fromkeys(taps)
+        forward_float(graph, tp, x, capture=captured)
+        for t in taps:
+            out[t].append(captured[t].cpu().numpy())
+    return {t: np.concatenate(v, 0) for t, v in out.items()}
+
+
+def save_batches(out_dir: str, samples: Dict[str, np.ndarray]) -> None:
+    """Persist per-image activation dumps in the reference's artifact
+    format: {out}/batches/{tap}/b_{i}.pickle, gzip compresslevel=3,
+    pickle protocol 4 (reference utils/save_weights.py:13-21 save_batch).
+    Each file holds one image's (1, C, H, W) pre-activation tensor."""
+    for tap, arr in samples.items():
+        d = os.path.join(out_dir, "batches", tap)
+        os.makedirs(d, exist_ok=True)
+        for i in range(arr.shape[0]):
+            with gzip.open(os.path.join(d, f"b_{i}.pickle"), "wb",
+                           compresslevel=3) as f:
+                pickle.dump(arr[i:i + 1], f, protocol=4)
+
+
+def load_batches(out_dir: str, taps: List[str]
+                 ) -> Optional[Dict[str, np.ndarray]]:
+    """Reload activation dumps for a resumable min_mae reduction (the
+    reference re-reads them in stage 5: utils/stage_5_common_func.py:41-42
+    load_from_file). Returns None if any tap's dump directory is missing
+    or empty. The files are unpickled, so load only dumps this program
+    wrote."""
+    out: Dict[str, np.ndarray] = {}
+    for tap in taps:
+        d = os.path.join(out_dir, "batches", tap)
+        if not os.path.isdir(d):
+            return None
+        files = sorted((f for f in os.listdir(d)
+                        if re.fullmatch(r"b_\d+\.pickle", f)),
+                       key=lambda f: int(f[2:-7]))
+        if not files:
+            return None
+        parts = []
+        for f in files:
+            with gzip.open(os.path.join(d, f), "rb") as fh:
+                parts.append(np.asarray(pickle.load(fh)))
+        out[tap] = np.concatenate(parts, 0)
+    return out
 
 
 def _sample_std(v: np.ndarray) -> float:

@@ -23,6 +23,7 @@ Engines (``int_forward(engine=...)``), all bit-identical:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -92,18 +93,64 @@ def device_plan(model: QuantizedModel, device) -> Dict:
     return plan
 
 
-def quantize_input(x: torch.Tensor, k: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _u8_divisor(device: torch.device) -> torch.Tensor:
+    """The 0-dim float32 255 that quantize_input divides uint8 pixels by,
+    made once per device."""
+    return torch.full((), 255.0, device=device)
+
+
+def quantize_input(x: torch.Tensor, k: int,
+                   per_image_amax: bool = False) -> torch.Tensor:
     """Image (NCHW f32 in [0, 1], or raw uint8 pixels) -> int8 K-bit
-    values at the pinned a=1 of the golden pipeline, rounding half to
-    even. uint8 is normalised here as u/255 in float32 (correctly
-    rounded, so identical to a host loader feeding f32)."""
+    values, rounding half to even.
+
+    Default pins a=1 like the golden pipeline (reference
+    utils/quant_matrix.py:70-72 start=True); per_image_amax re-derives a
+    per image, the stage-8 runtime quirk (stage_8_torch.py:510 with
+    start=False): s = qmax / a, a true division of two tensors as in the
+    JAX function (``qmax / a`` on a tensor would be a reciprocal times
+    qmax, and round(x * s) would then miss JAX's ties).
+
+    uint8 is normalised here as u/255 in float32, dividing by a 0-dim
+    tensor on x's device (``_u8_divisor``): IEEE division on the CPU and
+    on CUDA, so the float32 values equal a host loader's u/255. (On CUDA,
+    dividing by a Python float or a CPU scalar multiplies by its float32
+    reciprocal, which differs from the quotient for 126 of the 256 pixel
+    values.)"""
     if x.dtype == torch.uint8:
-        x = x.to(torch.float32) / 255.0
+        x = x.to(torch.float32) / _u8_divisor(x.device)
     if k > 8:
         raise ValueError(f"k={k}: quantized inputs are carried as int8")
     qmax = 2 ** (k - 1) - 1
-    return torch.round(torch.clamp(x, -1.0, 1.0) * float(qmax)).to(
-        torch.int8)
+    if per_image_amax:
+        a = torch.amax(torch.abs(x), dim=(1, 2, 3), keepdim=True)
+        q = torch.clamp(x, -a, a) * (torch.full_like(a, float(qmax)) / a)
+    else:
+        q = torch.clamp(x, -1.0, 1.0) * float(qmax)
+    return torch.round(q).to(torch.int8)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineOptions:
+    """Per-pipeline options (counterpart of the JAX EngineOptions, whose
+    TPU flavor fields bf16_s2, s2d and merge_siblings have no counterpart:
+    the port's engines stand for those layouts).
+
+    per_image_amax: quantize the input with a per-image amax instead of
+    the calibrated a=1 pin, the stage-8 deployed-runtime quirk (reference
+    stage_8_torch.py:510, quant_matrix start=False): the runtime
+    re-derives the input scale per image but keeps the rescale
+    coefficients computed from the calibration scale. Needed for
+    detection-level parity with the reference's stage-8 runtimes; off for
+    the stage-6/golden contract.
+
+    The wrapper keeps the JAX call ``build_int_pipeline(options=...)``,
+    so that the mAP evaluation, its only user, calls both pipelines the
+    same way.
+    """
+
+    per_image_amax: bool = False
 
 
 def _store_dtype(model: QuantizedModel, edge: str) -> torch.dtype:
@@ -363,9 +410,30 @@ def cls_int_conf_threshold(model: QuantizedModel,
     return float(above[0] + lut.lo) - 0.5
 
 
+def eval_nms_params(model: QuantizedModel, conf_thres: float):
+    """NmsParams for the mAP protocol at a FLOAT confidence threshold.
+
+    The reference's mAP runs use conf 1e-8 (stage_8_torch.py:147) while
+    its serving demo uses 0.25; the full-quant path expresses the same cut
+    in 16-bit sigmoid ints (8192 = round(0.25 * 32767),
+    utils/bbox_cls_functions.py:195-250). This maps a float threshold onto
+    whichever domain the model's NMS runs in; build_int_pipeline then
+    converts quantized params to the deferred-sigmoid pre-sigmoid domain."""
+    from alpha_yolo_quant_torch.postprocess.nms import (
+        NmsParams, q_nms_params,
+    )
+
+    if model.cfg.full_quant:
+        return q_nms_params(model.head.anchor_scale,
+                            conf_thres_int=int(round(conf_thres * 32767)))
+    return NmsParams(conf_thres=conf_thres, pre_topk=1000)
+
+
 def build_int_pipeline(model: QuantizedModel, device="cuda",
                        dfl_w_float=None, with_nms: bool = True,
+                       nms_params=None,
                        pad_batch_to: Optional[int] = None,
+                       options: Optional[EngineOptions] = None,
                        coalesce_requests: Optional[int] = None,
                        plain: bool = False, engine: str = "fused"):
     """Return ``(fn, plan)``: fn maps images (NCHW float32 in [0, 1] or
@@ -374,31 +442,48 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
 
     Full quant: integer head, deferred-sigmoid q_NMS. Partial quant: the
     float head (dequantized accumulators) needs ``dfl_w_float``.
+    nms_params: None for the serving defaults; quantized params for a
+    full-quant model carry conf_thres in the 16-bit post-sigmoid domain
+    (q_nms_params, eval_nms_params) and are moved to the pre-sigmoid
+    domain here, keeping the deferred sigmoid.
     pad_batch_to: pad the quantized batch with zero images up to this
     width for the conv stack and slice back (per-image results are batch
-    independent). coalesce_requests=N: fn takes N request arrays,
-    quantizes each, runs one forward over their concatenation and returns
-    one result per request. plain: convs through their plain versions;
-    engine: "fused", "pallas" or "packed" (see int_forward)."""
+    independent). options: EngineOptions (per_image_amax).
+    coalesce_requests=N: fn takes N request arrays, quantizes each, runs
+    one forward over their concatenation and returns one result per
+    request. plain: convs through their plain versions; engine: "fused",
+    "pallas" or "packed" (see int_forward)."""
     from alpha_yolo_quant_torch.postprocess.nms import (
         NmsParams, non_max_suppression, q_nms_params,
     )
     from alpha_yolo_quant_torch.serving import split_by_sizes
 
     _check_engine(engine, plain=plain)
+    if options is None:
+        options = EngineOptions()
     device = torch.device(device)
     plan = device_plan(model, device)
     k = model.cfg.k
     full = model.cfg.full_quant
-    if full:
-        # rank raw int class scores; sigmoid only the kept rows
+    score_map = None
+    if nms_params is None:
+        if full:
+            # rank raw int class scores; sigmoid only the kept rows
+            nms_params = dataclasses.replace(
+                q_nms_params(model.head.anchor_scale),
+                conf_thres=cls_int_conf_threshold(model))
+            score_map = plan["head"]["cls_sig_lut"].apply
+        else:
+            nms_params = NmsParams(conf_thres=0.25)
+    elif full and nms_params.quantized:
+        # the sigmoid is monotone: the post-sigmoid cut conf > t is the
+        # pre-sigmoid cut through the LUT
         nms_params = dataclasses.replace(
-            q_nms_params(model.head.anchor_scale),
-            conf_thres=cls_int_conf_threshold(model))
+            nms_params,
+            conf_thres=cls_int_conf_threshold(
+                model, int(nms_params.conf_thres)))
         score_map = plan["head"]["cls_sig_lut"].apply
-    else:
-        nms_params = NmsParams(conf_thres=0.25)
-        score_map = None
+    if not full:
         if dfl_w_float is None:
             raise ValueError("partial-quant pipeline needs dfl_w_float")
         dfl_w = torch.as_tensor(np.asarray(dfl_w_float), dtype=torch.float32,
@@ -406,8 +491,10 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
 
     def _post(outs):
         if full:
-            preds = decode_full_quant(model, plan, outs, sigmoid_cls=False,
-                                      reduce_cls=with_nms,
+            preds = decode_full_quant(model, plan, outs,
+                                      sigmoid_cls=score_map is None,
+                                      reduce_cls=(score_map is not None
+                                                  and with_nms),
                                       pre_requantized=True)
         else:
             preds = decode_float(dequantize_heads(model, outs), dfl_w)
@@ -428,7 +515,8 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
         return _post(outs)
 
     def _quant(images):
-        return quantize_input(torch.as_tensor(images, device=device), k)
+        return quantize_input(torch.as_tensor(images, device=device), k,
+                              per_image_amax=options.per_image_amax)
 
     if coalesce_requests is not None:
         n_req = int(coalesce_requests)

@@ -16,16 +16,29 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      plain with CUDA events: the conv kernels at shapes read from the
      graph IR at B=8 and B=128, with torch._int_mm on the same int8
      product as the yardstick, the postconv epilogues on the nibble-split
-     partials of a yolov8n conv, the banded slab conv on seven convs of
-     the 640 model's slab plan at B=8 and B=128, with torch._int_mm on
-     the gathered product of its taps as the yardstick;
+     partials of a yolov8n conv at B=8 and B=128 (and the bytes of a
+     whole pallas forward's epilogues), the banded slab conv on seven
+     convs of the 640 model's slab plan at B=8 and B=128, with
+     torch._int_mm on the gathered product of its taps as the yardstick;
   4. serve three coalesced requests (4 uint8 + 8 f32 + 4 f32 images)
      through build_int_pipeline on each engine (fused, pallas, packed),
      with the launch counts set to 0 just before each and read just after:
      every conv must go through the engine's kernels, and the detections
      must equal the plain path's bit for bit; one image's head edges must
-     equal the numpy int64 oracle golden_forward;
-  5. time the whole pipeline of each engine at B=128;
+     equal the numpy int64 oracle golden_forward, and its decoded planes
+     golden's decode_full_quant_np;
+  5. outside oracles at 640: two images' full-quant detections from the
+     card equal the CPU pipeline's bit for bit; a partial-quant model (the
+     float head on the card) serves two images whose head edges equal the
+     CPU's and whose detections match the CPU pipeline within f32 rounding
+     (counts and classes exact, boxes atol 1e-3, scores rtol 1e-5);
+  6. the deployed path: the CLI's prepare from a synthetic torch
+     checkpoint and its calibrate on the card, a full-quant model built
+     from their files, then a BatchCoalescer (max_batch 128, 5 ms) fed
+     24 uint8 requests from 8 threads, counted: 63 conv launches per
+     flush, and every request's detections equal a direct pipeline call;
+     prints the coalescer's snapshot;
+  7. time the whole pipeline of each engine at B=128;
 then print the kernels line (every kernel with its launches on its path,
 error, times and bound) and, last, the device line.
 """
@@ -338,6 +351,26 @@ def check_postconv_kernels(graph, sig, res, batch: int, reps: int):
                   library_ms=None, shape=shape)
 
 
+def postconv_forward_bound(graph, batch: int = 128) -> None:
+    """The bytes the postconv epilogues of one pallas forward must move,
+    from the graph IR: each SiLU conv reads two int32 partials and writes
+    int8 (9 bytes an output), each plain conv writes int32 (12 bytes),
+    over the card's memory rate."""
+    from alpha_yolo_quant_torch.engine_profile import HBM_BPS
+
+    geo = edge_geometry(graph)
+    outs = {True: 0, False: 0}
+    for n in graph.convs():
+        outs[n.silu] += batch * geo[n.dst][1] ** 2 * n.cout
+    n_bytes = 9 * outs[True] + 12 * outs[False]
+    log(f"postconv B={batch} pallas forward: "
+        f"{sum(n.silu for n in graph.convs())} SiLU convs "
+        f"{outs[True] / 1e9:.3f} G int8 outputs (9 bytes each) + "
+        f"{sum(not n.silu for n in graph.convs())} plain convs "
+        f"{outs[False] / 1e9:.3f} G int32 outputs (12 bytes each) = "
+        f"{n_bytes / 1e9:.2f} GB, bound {n_bytes / HBM_BPS * 1e3:.2f} ms")
+
+
 DERIVED = ("s2e:", "s2o:", "eoe:", "eoo:")   # row/group views of a slab
 
 
@@ -456,7 +489,9 @@ def check_kernels(model, plan, batch: int, reps: int = 10):
     keep_case(res, "sigma_probe", 0, max_abs_err=err, ms=ms,
               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
               library_ms=None, shape=f"{sig.values.numel()} entries")
-    check_postconv_kernels(graph, sig, res, batch, reps)
+    for b in (batch, 128):
+        check_postconv_kernels(graph, sig, res, b, reps)
+    postconv_forward_bound(graph)
     for b in (batch, 128):
         check_packed_kernel(model, plan, res, b, reps)
     return res
@@ -537,12 +572,17 @@ def serve(model, device):
 
 def golden_heads(model, plan, x_u8):
     """Phase 4b: one image's six head edges from the kernel path against
-    the numpy int64 oracle on the host."""
+    the numpy int64 oracle on the host, and its decoded (1, 84, 8400)
+    planes (boxes in anchor units, 16-bit class sigmoid) against golden's
+    float64 decode_full_quant_np, exactly: the f32 boxes are sums of
+    integers below 2^24 times power-of-two strides."""
     import torch
 
-    from alpha_yolo_quant_torch.runtime.golden import golden_forward
+    from alpha_yolo_quant_torch.runtime.golden import (
+        decode_full_quant_np, golden_forward,
+    )
     from alpha_yolo_quant_torch.runtime.interpreter import (
-        int_forward, quantize_input,
+        decode_full_quant, int_forward, quantize_input,
     )
 
     outs = int_forward(model, plan, quantize_input(x_u8, model.cfg.k))
@@ -557,11 +597,225 @@ def golden_heads(model, plan, x_u8):
                                  "golden_forward")
     log(f"golden: the six head edges of one {model.cfg.image_size}px image "
         f"equal golden_forward (numpy int64 on the host, {sec:.1f} s)")
+    plane = decode_full_quant(model, plan, outs).cpu().numpy()
+    want = decode_full_quant_np(model, env)
+    if plane.shape != want.shape or not np.array_equal(
+            plane.astype(np.float64), want):
+        raise AssertionError("decoded planes differ from "
+                             "decode_full_quant_np")
+    log(f"golden: the decoded planes {tuple(plane.shape)} from the card "
+        f"equal decode_full_quant_np (max_abs_err=0)")
+
+
+def check_against_cpu(model, device, image_size: int = 640):
+    """Phase 5a: two uint8 images' full-quant detections from the fused
+    engine on the card against the CPU pipeline (plain convs), bit for
+    bit: 8400 anchors, the top-1000 q_NMS regime."""
+    import torch
+
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline,
+    )
+
+    x = np.random.default_rng(5).integers(
+        0, 256, (2, 3, image_size, image_size)).astype(np.uint8)
+    det, n = build_int_pipeline(model, device)[0](
+        torch.as_tensor(x, device=device))
+    det_c, n_c = build_int_pipeline(model, "cpu", plain=True)[0](x)
+    if not (torch.equal(det.cpu(), det_c) and torch.equal(n.cpu(), n_c)):
+        raise AssertionError("full-quant detections on the card differ "
+                             "from the CPU pipeline")
+    log(f"cpu oracle [full quant]: 2 images {image_size}px, "
+        f"{int(n_c.sum())} detections from the card equal the CPU "
+        f"pipeline bit for bit")
+
+
+def check_partial_quant(device, image_size: int = 640):
+    """Phase 5b: a partial-quant model (same weights and calibration, the
+    float head on the card): two images through the fused engine; the
+    head edges equal the CPU's bit for bit, the detections match the CPU
+    pipeline with counts and classes exact, boxes within atol 1e-3 and
+    scores within rtol 1e-5."""
+    import torch
+
+    from alpha_yolo_quant_torch.engine_profile import build_model
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline, device_plan, int_forward, quantize_input,
+    )
+
+    model = build_model(image_size, device, full_quant=False)
+    dfl = np.arange(16, dtype=np.float32)    # init_params' DFL weight
+    x = np.random.default_rng(6).integers(
+        0, 256, (2, 3, image_size, image_size)).astype(np.uint8)
+    xt = torch.as_tensor(x, device=device)
+    outs = int_forward(model, device_plan(model, device),
+                       quantize_input(xt, model.cfg.k))
+    outs_c = int_forward(model, device_plan(model, "cpu"),
+                         quantize_input(torch.as_tensor(x), model.cfg.k),
+                         plain=True)
+    for role in model.graph.outputs:
+        if not torch.equal(outs[role].cpu(), outs_c[role]):
+            raise AssertionError(f"partial quant: head edge {role} "
+                                 "differs from the CPU")
+    det, n = build_int_pipeline(model, device, dfl_w_float=dfl)[0](xt)
+    det_c, n_c = build_int_pipeline(model, "cpu", dfl_w_float=dfl,
+                                    plain=True)[0](x)
+    det, n = det.cpu().numpy(), n.cpu().numpy()
+    det_c, n_c = det_c.numpy(), n_c.numpy()
+    if not np.array_equal(n, n_c) or not np.array_equal(det[..., 5],
+                                                        det_c[..., 5]):
+        raise AssertionError(f"partial quant: counts {n} vs CPU {n_c} or "
+                             "classes differ")
+    box_err = float(np.abs(det[..., :4] - det_c[..., :4]).max())
+    score_rel = float((np.abs(det[..., 4] - det_c[..., 4])
+                       / np.maximum(np.abs(det_c[..., 4]), 1e-30)).max())
+    np.testing.assert_allclose(det[..., :4], det_c[..., :4], atol=1e-3)
+    np.testing.assert_allclose(det[..., 4], det_c[..., 4], rtol=1e-5)
+    log(f"cpu oracle [partial quant]: 2 images {image_size}px, head edges "
+        f"equal the CPU's; {int(n_c.sum())} detections, counts and classes "
+        f"exact, max box diff {box_err:.3g} px (atol 1e-3), max score "
+        f"rel diff {score_rel:.3g} (rtol 1e-5)")
+
+
+def synthetic_checkpoint(graph, path: str, seed: int = 0) -> int:
+    """torch.save init_raw_params(seed) as a state dict in the checkpoint's
+    slot (registration) order under opaque names, like an ultralytics
+    checkpoint; returns the tensor count."""
+    from collections import OrderedDict
+
+    import torch
+
+    from alpha_yolo_quant_torch.models.params import (
+        init_raw_params, raw_param_slots,
+    )
+
+    raw = init_raw_params(graph, seed=seed)
+    sd = OrderedDict()
+    for key, fields in raw_param_slots(graph):
+        for f in fields:
+            sd[f"model.model.{len(sd)}.t"] = torch.from_numpy(
+                np.array(raw[key][f]))
+    torch.save(sd, path)
+    return len(sd)
+
+
+def deployed_path(device, card: str, image_size: int = 640,
+                  n_requests: int = 24, n_threads: int = 8):
+    """Phase 6: prepare -> calibrate -> serve as a deployment runs it. The
+    CLI's prepare and calibrate (synthetic batches of 8 images, on the
+    card) write their files in a temp dir; a full-quant model is built
+    from them; a BatchCoalescer (max_batch 128, max_wait 5 ms) serves
+    uint8 requests of 1-16 images from several threads. Fails unless the
+    fused engine launched 63 convs per flush and every request's
+    detections equal a direct call of the same pipeline. Returns the
+    coalescer's snapshot."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from alpha_yolo_quant_torch import cli
+    from alpha_yolo_quant_torch.config import QuantConfig
+    from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
+    from alpha_yolo_quant_torch.quantize.transform import (
+        build_quantized_model,
+    )
+    from alpha_yolo_quant_torch.runtime import fused_ops
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline,
+    )
+    from alpha_yolo_quant_torch.serving import BatchCoalescer
+    from alpha_yolo_quant_torch.utils.io import read_max_a
+    from alpha_yolo_quant_torch.utils.params_io import load_params
+
+    cfg = QuantConfig(model="yolov8n", k=8, full_quant=True,
+                      image_size=image_size)
+    graph = build_yolov8_graph(cfg)
+    size = ["--image-size", str(image_size)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "yolov8n_synthetic.pt")
+        n_tensors = synthetic_checkpoint(graph, ckpt)
+        out = os.path.join(tmp, "8_nano")
+        t0 = time.perf_counter()
+        if cli.main(["prepare", "--checkpoint", ckpt, "--out", out]
+                    + size) != 0:
+            raise AssertionError("prepare failed")
+        t1 = time.perf_counter()
+        npz = os.path.join(out, "results", "weights_batchnf.npz")
+        if cli.main(["calibrate", "--weights", npz, "--out", out,
+                     "--device", str(device)] + size) != 0:
+            raise AssertionError("calibrate failed")
+        t2 = time.perf_counter()
+        params = load_params(npz)
+        max_a = read_max_a(os.path.join(out, "results", "max_a.txt"))
+    model = build_quantized_model(graph, params, max_a, cfg)
+    fn, _ = build_int_pipeline(model, device)
+    log(f"deployed: prepare ({n_tensors}-tensor synthetic checkpoint, "
+        f"{t1 - t0:.1f} s) -> calibrate (8 synthetic images on the card, "
+        f"{t2 - t1:.1f} s) -> a full-quant model from {len(max_a)} max_a "
+        f"entries")
+    rng = np.random.default_rng(4)
+    shape = (3, image_size, image_size)
+    reqs = [rng.integers(0, 256, (int(rng.integers(1, 17)),) + shape,
+                         dtype=np.uint8) for _ in range(n_requests)]
+    results, errors = [None] * n_requests, []
+    torch.cuda.synchronize()
+    fused_ops.reset_counts()
+    with BatchCoalescer(fn, max_batch=128, max_wait_ms=5,
+                        image_shape=shape, dtype=np.uint8) as co:
+        def submitter(t):
+            try:
+                for i in range(t, n_requests, n_threads):
+                    results[i] = co.submit(reqs[i]).result(timeout=600)
+            except BaseException as e:   # re-raised by the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=submitter, args=(t,))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a submitter did not finish")
+        if errors:
+            raise errors[0]
+        stats = co.snapshot()
+    torch.cuda.synchronize()
+    counts = dict(fused_ops.LAUNCHES)
+    n_conv = counts["conv1x1"] + counts["conv3x3"]
+    per_flush = len(graph.convs())
+    log(f"deployed: launches {counts} over {stats['flushes']} flushes")
+    if (stats["requests"] != n_requests or stats["flushes"] < 1
+            or n_conv != per_flush * stats["flushes"]):
+        raise AssertionError(f"deployed path: {n_conv} conv launches for "
+                             f"{stats['flushes']} flushes, expected "
+                             f"{per_flush} per flush")
+    total = 0
+    for r, (det, n) in zip(reqs, results):
+        det_d, n_d = fn(r)
+        if not (np.array_equal(det, det_d.cpu().numpy())
+                and np.array_equal(n, n_d.cpu().numpy())):
+            raise AssertionError("a coalesced request differs from the "
+                                 "direct call")
+        if det.shape != (r.shape[0], 300, 6) or not np.isfinite(det).all():
+            raise AssertionError("deployed path: bad detections")
+        total += int(n.sum())
+    log(f"deployed: {n_requests} requests ({stats['images']} uint8 images, "
+        f"{total} detections) from {n_threads} threads equal direct "
+        f"build_int_pipeline calls bit for bit")
+    log(f"deployed: coalescer snapshot (smoke output of {n_requests} "
+        f"closed-loop requests, not a metric) flushes={stats['flushes']} "
+        f"mean_fill={stats['mean_fill']:.4f} "
+        f"latency_ms p50={stats['latency_ms_p50']:.2f} "
+        f"p95={stats['latency_ms_p95']:.2f} (max_batch 128, max_wait 5 ms) "
+        f"on {card}")
+    return stats
 
 
 def time_pipeline(model, device, card: str, engine: str, batch: int = 128,
                   reps: int = 3):
-    """Phase 5: whole pipeline (uint8 images on the card -> detections)
+    """Phase 7: whole pipeline (uint8 images on the card -> detections)
     at B=128, host clock around synchronized batches after a warm-up."""
     from alpha_yolo_quant_torch.engine_profile import device_ms
     import torch
@@ -620,6 +874,9 @@ def main() -> int:
     kres = check_kernels(model, device_plan(model, dev), batch=8)
     launches, plans, reqs = serve(model, dev)
     golden_heads(model, plans["fused"], reqs[0][:1])
+    check_against_cpu(model, dev)
+    check_partial_quant(dev)
+    deployed_path(dev, card)
     for engine in ("fused", "pallas", "packed"):
         time_pipeline(model, dev, card, engine)
     log(json.dumps({"kernels": [

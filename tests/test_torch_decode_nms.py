@@ -3,6 +3,8 @@ same inputs. Bit-exact unless a test states its tolerance. Port functions
 take the port's model, JAX functions the JAX model, both built from the
 same params and calibration."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -16,7 +18,7 @@ from alpha_yolo_quant_tpu.models import head as jhead
 from alpha_yolo_quant_tpu.postprocess import nms as jnms
 from alpha_yolo_quant_tpu.runtime import interpreter as jinterp
 from alpha_yolo_quant_tpu.runtime.golden import (
-    golden_forward, head_intermediates_np,
+    decode_full_quant_np, golden_forward, head_intermediates_np,
 )
 from alpha_yolo_quant_torch.models import head as thead
 from alpha_yolo_quant_torch.postprocess import nms as tnms
@@ -230,8 +232,17 @@ def test_greedy_keep_set_max_det_cap():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("mode", ["float_plane", "quant_tuple"])
-def test_non_max_suppression_equals_jax(mode):
+@pytest.mark.parametrize("mode,quirks", [
+    ("float_plane", {}), ("quant_tuple", {}),
+    ("float_plane", {"agnostic": True}),
+    ("quant_tuple", {"agnostic": True, "trunc_boxes": True}),
+    ("quant_tuple", {"trunc_boxes": True})],
+    ids=["float_plane", "quant_tuple", "float_plane-agnostic",
+         "quant_tuple-agnostic-trunc", "quant_tuple-trunc"])
+def test_non_max_suppression_equals_jax(mode, quirks):
+    """Float and q_NMS, and the stage-8 quirks (class-agnostic NMS,
+    boxes truncated toward zero): each changes the kept set or the rows
+    on this input."""
     rng = np.random.default_rng(3)
     b, n = 3, 400
     xy = rng.uniform(100, 500, (b, 2, n))
@@ -241,8 +252,8 @@ def test_non_max_suppression_equals_jax(mode):
         pred[:, 0:2], pred[:, 2:4] = xy, wh
         pred[:, 4:] = rng.uniform(0, 1, (b, 80, n)) * rng.uniform(
             0, 0.6, (b, 1, n))
-        params = jnms.NmsParams()
-        tparams = tnms.NmsParams()
+        params = jnms.NmsParams(**quirks)
+        tparams = tnms.NmsParams(**quirks)
         jin, tin = jnp.asarray(pred), _t(pred)
         score_map = t_map = None
     else:
@@ -251,8 +262,13 @@ def test_non_max_suppression_equals_jax(mode):
                          ).astype(np.float32)
         conf = rng.integers(-3000, 3000, (b, n)).astype(np.float32)
         cls = rng.integers(0, 80, (b, n)).astype(np.float32)
-        params = jnms.q_nms_params(scale, conf_thres_int=-500)
-        tparams = tnms.q_nms_params(scale, conf_thres_int=-500)
+        if quirks.get("trunc_boxes"):   # fractional, so truncation moves
+            boxes = boxes + rng.uniform(-0.9, 0.9, boxes.shape).astype(
+                np.float32)
+        params = dataclasses.replace(
+            jnms.q_nms_params(scale, conf_thres_int=-500), **quirks)
+        tparams = dataclasses.replace(
+            tnms.q_nms_params(scale, conf_thres_int=-500), **quirks)
         jin = (jnp.asarray(boxes), jnp.asarray(conf), jnp.asarray(cls))
         tin = (_t(boxes), _t(conf), _t(cls))
 
@@ -270,6 +286,11 @@ def test_non_max_suppression_equals_jax(mode):
     np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
     assert int(n_t.min()) > 0
     np.testing.assert_array_equal(det_t.numpy(), np.asarray(det_j))
+    if quirks:
+        det_0, n_0 = tnms.non_max_suppression(
+            tin, dataclasses.replace(tparams, agnostic=False,
+                                     trunc_boxes=False), score_map=t_map)
+        assert not (torch.equal(det_0, det_t) and torch.equal(n_0, n_t))
 
 
 def test_sort_keys_and_box_helpers_equal_jax():
@@ -297,8 +318,10 @@ def test_sort_keys_and_box_helpers_equal_jax():
 
 
 def test_golden_decode_consistency(full_model):
-    """Sanity: the full-quant decode of a real forward is finite and the
-    class plane is in 16-bit sigmoid units."""
+    """The full-quant decode of a real forward equals the golden
+    decode_full_quant_np (float64) exactly: its f32 boxes are sums of
+    integers below 2^24 times power-of-two strides. The class plane is in
+    16-bit sigmoid units."""
     tmodel, jmodel = full_model
     x = RNG.uniform(0, 1, (1, 3, 64, 64)).astype(np.float32)
     env = golden_forward(jmodel, x)
@@ -307,5 +330,8 @@ def test_golden_decode_consistency(full_model):
         tmodel, plan, {r: _t(env[r]).to(torch.int32)
                        for r in tmodel.graph.outputs})
     assert preds.shape == (1, 84, 84) and torch.isfinite(preds).all()
+    np.testing.assert_array_equal(
+        preds.numpy().astype(np.float64),
+        decode_full_quant_np(jmodel, env))
     assert 0 <= float(preds[:, 4:].min()) and float(preds[:, 4:].max()) \
         <= 32767

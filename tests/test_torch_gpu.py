@@ -303,8 +303,8 @@ def test_packed_call_edges_equal_plain(cuda, kind, silu):
         assert int((got * sign).max()) == top and int(got.abs().max()) == top
 
 
-def _card_model(full_quant=True):
-    cfg = QuantConfig(model="yolov8n", k=8, full_quant=full_quant,
+def _card_model(full_quant=True, model="yolov8n"):
+    cfg = QuantConfig(model=model, k=8, full_quant=full_quant,
                       image_size=64)
     graph = build_yolov8_graph(cfg)
     params = init_params(graph, seed=0)
@@ -352,3 +352,91 @@ def test_engine_on_card_equals_cpu(cuda, engine):
     assert all(fused_ops.LAUNCHES[k] > 0 for k in kernels)
     det_c, n_c = build_int_pipeline(model, "cpu")[0](x)
     assert torch.equal(det.cpu(), det_c) and torch.equal(n.cpu(), n_c)
+
+
+DFL = np.arange(16, dtype=np.float32)     # init_params' DFL weight
+
+
+def _assert_dets_close(got, want):
+    """The tolerance of the CPU test
+    test_partial_quant_pipeline_matches_jax_within_f32_rounding: counts and
+    classes exact, boxes atol 1e-3, scores rtol 1e-5."""
+    det, n = (t.cpu().numpy() for t in got)
+    det_c, n_c = (t.numpy() for t in want)
+    np.testing.assert_array_equal(n, n_c)
+    np.testing.assert_allclose(det[..., :4], det_c[..., :4], atol=1e-3)
+    np.testing.assert_allclose(det[..., 4], det_c[..., 4], rtol=1e-5)
+    np.testing.assert_array_equal(det[..., 5], det_c[..., 5])
+
+
+def test_partial_quant_on_card_matches_cpu(cuda):
+    """Partial quant: the six head edges come from the integer graph and
+    equal the CPU's bit for bit; the float head (softmax, DFL, sigmoid) on
+    the card matches the CPU pipeline within f32 rounding."""
+    model = _card_model(full_quant=False)
+    x = np.random.default_rng(3).uniform(0, 1, (3, 3, 64, 64)).astype(
+        np.float32)
+    outs = int_forward(model, device_plan(model, cuda),
+                       quantize_input(torch.as_tensor(x, device=cuda), 8))
+    outs_c = int_forward(model, device_plan(model, "cpu"),
+                         quantize_input(torch.as_tensor(x), 8))
+    for role in model.graph.outputs:
+        assert torch.equal(outs[role].cpu(), outs_c[role]), role
+    fused_ops.reset_counts()
+    got = build_int_pipeline(model, cuda, dfl_w_float=DFL)[0](
+        torch.as_tensor(x, device=cuda))
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES["conv1x1"] + fused_ops.LAUNCHES["conv3x3"] \
+        == len(model.graph.convs())
+    want = build_int_pipeline(model, "cpu", dfl_w_float=DFL)[0](x)
+    assert int(want[1].sum()) > 0
+    _assert_dets_close(got, want)
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "partial"])
+def test_yolov8m_on_card_equals_cpu_and_golden(cuda, full):
+    """yolov8m: its Couts 384 and 576 take the conv kernels' multi-column
+    block path. Every engine's head edges equal golden_forward; the
+    detections equal the CPU pipeline (partial quant: within f32
+    rounding)."""
+    model = _card_model(full_quant=full, model="yolov8m")
+    assert max(c.cout for c in model.graph.convs()) == 576
+    x = np.random.default_rng(4).uniform(0, 1, (2, 3, 64, 64)).astype(
+        np.float32)
+    want = golden_forward(model, x)
+    plan = device_plan(model, cuda)
+    x_q = quantize_input(torch.as_tensor(x, device=cuda), 8)
+    for engine in ("fused", "pallas", "packed"):
+        outs = int_forward(model, plan, x_q, engine=engine)
+        for role in model.graph.outputs:
+            np.testing.assert_array_equal(
+                outs[role].cpu().numpy().astype(np.int64), want[role],
+                err_msg=f"{engine} {role}")
+    got = build_int_pipeline(model, cuda, dfl_w_float=DFL)[0](
+        torch.as_tensor(x, device=cuda))
+    want_det = build_int_pipeline(model, "cpu", dfl_w_float=DFL)[0](x)
+    if full:
+        assert torch.equal(got[0].cpu(), want_det[0])
+        assert torch.equal(got[1].cpu(), want_det[1])
+    else:
+        _assert_dets_close(got, want_det)
+
+
+def test_uint8_ingest_on_card_is_ieee_division(cuda):
+    """u/255 on the card equals the correctly rounded float32 quotient for
+    every pixel value (a Python-float divisor would multiply by the
+    reciprocal), and per_image_amax quantizes as on the CPU."""
+    u = torch.arange(256, dtype=torch.uint8).reshape(1, 1, 16, 16)
+    want = (np.arange(256, dtype=np.float32) / np.float32(255.0))
+    for amax in (False, True):
+        q = quantize_input(u.to(cuda), 8, per_image_amax=amax)
+        assert torch.equal(q.cpu(), quantize_input(u, 8,
+                                                   per_image_amax=amax))
+    x = u.to(cuda).to(torch.float32) / torch.full((), 255.0, device=cuda)
+    np.testing.assert_array_equal(x.cpu().numpy().reshape(-1), want)
+    x = np.random.default_rng(5).uniform(0, 1, (3, 3, 16, 16)).astype(
+        np.float32) * np.float32([0.3, 0.7, 1.0]).reshape(3, 1, 1, 1)
+    assert torch.equal(
+        quantize_input(torch.as_tensor(x, device=cuda), 8,
+                       per_image_amax=True).cpu(),
+        quantize_input(torch.as_tensor(x), 8, per_image_amax=True))
