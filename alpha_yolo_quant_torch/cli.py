@@ -1,16 +1,23 @@
-"""Pipeline CLI of the PyTorch port: prepare -> calibrate -> serve
-(counterpart of alpha_yolo_quant_tpu/cli.py, same argument names and
-defaults, same files and output lines).
+"""Pipeline CLI of the PyTorch port (counterpart of
+alpha_yolo_quant_tpu/cli.py, same argument names and defaults, same files
+and output lines):
 
   prepare    load checkpoint, fuse BatchNorm, save fused params
   calibrate  activation statistics -> max_a_all.txt + max_a.txt
-  serve      batch-coalescing inference over an image list (JSONL out)
+  quantize   build the integer model, golden-image run, export the full
+             artifact tree (Verilog txt, pickles, packed weights)
+  eval-float fp32 COCO mAP
+  eval-int8  quantized COCO mAP (float NMS or full q_NMS)
+  serve      batch-coalescing inference over an image list (JSONL out),
+             from --weights/--max-a or from an exported tree
+  accept     one-command accuracy acceptance (all gates + K sweep)
 
-calibrate and serve run on ``--device`` (default ``cuda``): without a card
-they stop unless ``--device cpu`` is given. serve's ``--engine`` is one of
-the port's engines (fused, pallas, packed). serve reads image files with
-PIL; where PIL is absent, drive serving.BatchCoalescer with in-memory
-arrays instead.
+calibrate, eval-*, serve and accept run on ``--device`` (default
+``cuda``): without a card they stop unless ``--device cpu`` is given.
+``--engine`` is one of the port's engines (fused, pallas, packed). Image
+files are read with PIL and the eval run plot is drawn with matplotlib;
+where PIL is absent, drive serving.BatchCoalescer or eval.harness.evaluate
+with in-memory arrays instead.
 
 Run as: python -m alpha_yolo_quant_torch.cli <command> [flags]
 """
@@ -43,12 +50,6 @@ def _device(args):
         raise SystemExit(f"{args.cmd}: no CUDA device; pass --device cpu "
                          "to run on the CPU")
     return dev
-
-
-def _results_dir(out: str) -> str:
-    path = os.path.join(out, "results")
-    os.makedirs(path, exist_ok=True)
-    return path
 
 
 def _graph_params(args, cfg):
@@ -87,6 +88,7 @@ def cmd_prepare(args):
     from alpha_yolo_quant_torch.models.params import (
         fuse_batchnorm, init_raw_params, load_torch_checkpoint,
     )
+    from alpha_yolo_quant_torch.export.artifacts import make_dirs
     from alpha_yolo_quant_torch.utils.params_io import save_params
 
     cfg = _cfg(args)
@@ -97,7 +99,8 @@ def cmd_prepare(args):
         print("NOTE: no --checkpoint; random raw params", file=sys.stderr)
         raw = init_raw_params(graph, seed=0)
     fused = fuse_batchnorm(graph, raw)
-    path = os.path.join(_results_dir(args.out), "weights_batchnf.npz")
+    make_dirs(args.out)
+    path = os.path.join(args.out, "results", "weights_batchnf.npz")
     save_params(fused, path)
     print(f"fused params -> {path}")
 
@@ -107,6 +110,7 @@ def cmd_calibrate(args):
         DEFAULT_MIN_MAE_KOEF, collect_samples, collect_stats, load_batches,
         reduce_stats, save_batches,
     )
+    from alpha_yolo_quant_torch.export.artifacts import make_dirs
     from alpha_yolo_quant_torch.utils.io import write_max_a, write_max_a_all
 
     cfg = _cfg(args)
@@ -127,18 +131,121 @@ def cmd_calibrate(args):
             samples = collect_samples(graph, params,
                                       _calib_batches(args, cfg), taps,
                                       device)
+            make_dirs(args.out)
             save_batches(args.out, samples)
             print(f"activation dumps -> {args.out}/batches/")
         else:
             print(f"resumed activation dumps from {args.out}/batches/")
     max_a = reduce_stats(records, cfg.calib_mode, cfg.k, samples)
-    results = _results_dir(args.out)
-    write_max_a_all(os.path.join(results, "max_a_all.txt"),
+    make_dirs(args.out)
+    write_max_a_all(os.path.join(args.out, "results", "max_a_all.txt"),
                     {k: v for k, v in records.items()
                      if not k.startswith("_")})
-    path = os.path.join(results, "max_a.txt")
+    path = os.path.join(args.out, "results", "max_a.txt")
     write_max_a(path, max_a)
     print(f"calibration ({cfg.calib_mode}) -> {path}")
+
+
+def cmd_quantize(args):
+    from alpha_yolo_quant_torch.data.coco import load_image_square
+    from alpha_yolo_quant_torch.export.artifacts import export_all
+    from alpha_yolo_quant_torch.quantize.transform import (
+        build_quantized_model,
+    )
+    from alpha_yolo_quant_torch.utils.io import read_max_a
+    from alpha_yolo_quant_torch.runtime.golden import golden_forward
+
+    cfg = _cfg(args)
+    graph, params = _graph_params(args, cfg)
+    max_a = read_max_a(args.max_a)
+    model = build_quantized_model(graph, params, max_a, cfg)
+    if args.image:
+        img = load_image_square(args.image, cfg.image_size)[None]
+    else:
+        img = np.random.default_rng(0).uniform(
+            0, 1, (1, 3, cfg.image_size, cfg.image_size)).astype(np.float32)
+    env = golden_forward(model, img)
+    export_all(model, env, params, args.out)
+    print(f"quantized artifacts -> {args.out}")
+
+
+def _eval_common(args, step, comment, stage, csv_tag):
+    from alpha_yolo_quant_torch.data.coco import CocoValDataset
+    from alpha_yolo_quant_torch.eval.harness import evaluate
+    from alpha_yolo_quant_torch.eval.plots import plot_run_results
+    from alpha_yolo_quant_torch.eval.records import save_csv_tables
+    from alpha_yolo_quant_torch.export.artifacts import make_dirs
+    from alpha_yolo_quant_torch.utils.run_log import write_run_result
+
+    cfg = _cfg(args)
+    ds = CocoValDataset(args.coco_images, args.coco_ann, limit=args.limit)
+    res = evaluate(step, ds, args.batch_size, cfg.image_size,
+                   progress=True, prefetch=args.prefetch,
+                   device=args.device)
+    print(f"mAP50-95: {res.map50_95:.4f} over {res.n_images} images "
+          f"({res.images_per_s:.1f} img/s device, "
+          f"{res.images_per_s_wall:.1f} img/s wall)")
+    make_dirs(args.out)
+    write_run_result(args.out, res.map50_95, stage, comment)
+    # reference reporting contract: per-run det/ann CSV tables + the
+    # cross-run mAP plot (stage_3.py:48-49, stage_8_torch.py:1020-1026,
+    # utils/plot_run_results.py:29-61)
+    ann_p, det_p = save_csv_tables(res.ann_rows, res.det_rows, args.out,
+                                   csv_tag)
+    print(f"tables -> {ann_p}, {det_p}")
+    if stage != 4:
+        print(f"run plot -> {plot_run_results(args.out)}")
+    return res
+
+
+def cmd_eval_float(args):
+    import torch
+
+    from alpha_yolo_quant_torch.models.forward import forward_float
+    from alpha_yolo_quant_torch.models.head import decode_float
+    from alpha_yolo_quant_torch.models.params import params_to_torch
+    from alpha_yolo_quant_torch.postprocess.nms import (
+        NmsParams, non_max_suppression,
+    )
+
+    cfg = _cfg(args)
+    device = _device(args)
+    graph, params = _graph_params(args, cfg)
+    tparams = params_to_torch(params, device)
+    nms = NmsParams(conf_thres=args.conf_thres, pre_topk=1000)
+
+    def step(images):
+        x = torch.as_tensor(images, dtype=torch.float32, device=device)
+        outs, _ = forward_float(graph, tparams, x)
+        return non_max_suppression(
+            decode_float(outs, tparams["dfl"]["w"]), nms)
+
+    return _eval_common(args, step, "fp32 BN-fused", 4, "orig")
+
+
+def cmd_eval_int8(args):
+    from alpha_yolo_quant_torch.quantize.transform import (
+        build_quantized_model,
+    )
+    from alpha_yolo_quant_torch.utils.io import read_max_a
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline, eval_nms_params,
+    )
+
+    cfg = _cfg(args)
+    device = _device(args)
+    graph, params = _graph_params(args, cfg)
+    model = build_quantized_model(graph, params, read_max_a(args.max_a),
+                                  cfg)
+    step, _ = build_int_pipeline(
+        model, device, dfl_w_float=params["dfl"]["w"],
+        nms_params=eval_nms_params(model, args.conf_thres),
+        engine=args.engine)
+    return _eval_common(args, step,
+                        f"int{cfg.k}" + (" full-quant q_NMS"
+                                         if cfg.full_quant
+                                         else " float NMS"), 7,
+                        f"QUANT_{cfg.k}_channel")
 
 
 def cmd_serve(args):
@@ -146,7 +253,10 @@ def cmd_serve(args):
     thread pool, submit each image to serving.BatchCoalescer, emit one
     JSON line per image: {"path", "n", "detections": [[x1,y1,x2,y2,
     conf,cls], ...]}, or {"path", "error"}. Returns 1 if an image
-    failed."""
+    failed. With --from-artifacts the model is rebuilt from --out's
+    exported tree (the stage-8 load: weight pickles, bias_scales,
+    max_a.txt), bit-identical to the model built from the float weights
+    (quantize/loadq.py)."""
     import concurrent.futures as cf
     import json
 
@@ -154,16 +264,28 @@ def cmd_serve(args):
     from alpha_yolo_quant_torch.quantize.transform import (
         build_quantized_model,
     )
+    from alpha_yolo_quant_torch.utils.io import read_max_a
     from alpha_yolo_quant_torch.runtime.interpreter import build_int_pipeline
     from alpha_yolo_quant_torch.serving import BatchCoalescer
-    from alpha_yolo_quant_torch.utils.io import read_max_a
 
     cfg = _cfg(args)
     device = _device(args)
-    graph, params = _graph_params(args, cfg)
-    model = build_quantized_model(graph, params, read_max_a(args.max_a),
-                                  cfg)
-    fn, _ = build_int_pipeline(model, device, dfl_w_float=params["dfl"]["w"],
+    if args.from_artifacts:
+        from alpha_yolo_quant_torch.quantize.loadq import (
+            dfl_weights_from_artifacts, model_from_artifacts,
+        )
+
+        model = model_from_artifacts(args.out, cfg)
+        dfl_w = dfl_weights_from_artifacts(args.out)
+    else:
+        if not args.max_a:
+            raise SystemExit("serve: --max-a is required unless "
+                             "--from-artifacts is given")
+        graph, params = _graph_params(args, cfg)
+        model = build_quantized_model(graph, params,
+                                      read_max_a(args.max_a), cfg)
+        dfl_w = params["dfl"]["w"]
+    fn, _ = build_int_pipeline(model, device, dfl_w_float=dfl_w,
                                engine=args.engine)
     src = sys.stdin if args.input_list == "-" else open(args.input_list)
     with src:
@@ -217,6 +339,85 @@ def cmd_serve(args):
     return 1 if n_failed else 0
 
 
+def cmd_accept(args):
+    """One-command accuracy acceptance: prepare -> gate 1 (fp32 mAP) ->
+    calibrate -> gate 2 (int, float NMS) -> gate 3 (int full-quant,
+    q_NMS) -> optional K sweep -> report table. Exit nonzero when a
+    gate's mAP50-95 drop vs the fp32 baseline exceeds the budget."""
+
+    def run(argv):
+        # route through the real subparsers so every default/flag has
+        # one source of truth
+        ns = build_parser().parse_args(argv)
+        return ns.fn(ns)
+
+    base = ["--model", args.model, "--image-size", str(args.image_size)]
+    datac = (["--coco-images", args.coco_images,
+              "--coco-ann", args.coco_ann,
+              "--batch-size", str(args.batch_size)]
+             + (["--limit", str(args.limit)]
+                if args.limit is not None else []))
+    devc = ["--device", args.device]
+    evalc = datac + devc + ["--conf-thres", str(args.conf_thres)] \
+        + (["--prefetch"] if args.prefetch else [])
+
+    def out_for(k):
+        # reference artifact-dir naming: 8_nano / 6_nano / 4_nano
+        # (stage_0.py's per-K trees); the primary K uses --out as given
+        from alpha_yolo_quant_torch.config import QuantConfig
+        return args.out if k == args.k else os.path.join(
+            os.path.dirname(args.out) or ".",
+            QuantConfig(model=args.model, k=k).main_dir_name)
+
+    print(f"== accept: prepare ({args.checkpoint or 'random init'}) ==")
+    run(["prepare"] + base + ["--k", str(args.k), "--out", args.out]
+        + (["--checkpoint", args.checkpoint] if args.checkpoint else []))
+    weights = os.path.join(args.out, "results", "weights_batchnf.npz")
+
+    print("== accept: gate 1 — fp32 BN-fused mAP ==")
+    g1 = run(["eval-float"] + base
+             + ["--k", str(args.k), "--out", args.out,
+                "--weights", weights] + evalc)
+
+    rows = []   # (label, res, out_dir)
+    ks = [args.k] + [int(s) for s in
+                     (args.k_sweep.split(",") if args.k_sweep else [])]
+    for k in ks:
+        out_k = out_for(k)
+        kc = ["--k", str(k), "--out", out_k, "--weights", weights]
+        print(f"== accept: calibrate K={k} (mode={args.mode}) ==")
+        run(["calibrate"] + base + kc + ["--mode", args.mode] + datac
+            + devc)
+        max_a = os.path.join(out_k, "results", "max_a.txt")
+        intc = (["eval-int8"] + base + kc
+                + ["--max-a", max_a, "--engine", args.engine] + evalc)
+        print(f"== accept: gate 2 — int{k}, float NMS ==")
+        rows.append((f"int{k} float-NMS", run(intc), out_k))
+        print(f"== accept: gate 3 — int{k} full-quant, q_NMS ==")
+        rows.append((f"int{k} full-quant",
+                     run(intc + ["--full-quant"]), out_k))
+
+    print("\n== acceptance report ==")
+    print(f"{'config':<20}{'mAP50-95':>10}{'drop':>8}  verdict")
+    print(f"{'fp32 baseline':<20}{g1.map50_95:>10.4f}{0.0:>8.4f}  "
+          "(gate 1)")
+    failed = []
+    for label, res, _ in rows:
+        drop = g1.map50_95 - res.map50_95
+        ok = drop <= args.drop_budget
+        print(f"{label:<20}{res.map50_95:>10.4f}{drop:>8.4f}  "
+              f"{'PASS' if ok else 'FAIL'} (budget {args.drop_budget})")
+        if not ok:
+            failed.append(label)
+    if failed:
+        print(f"ACCEPT: FAIL ({', '.join(failed)}) — sweep calibration "
+              "modes (--mode median | min_mae | n=5) before touching "
+              "the quantizer", file=sys.stderr)
+        return 1
+    print("ACCEPT: PASS")
+    return 0
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="alpha_yolo_quant_torch",
                                 description=__doc__,
@@ -250,11 +451,40 @@ def build_parser():
     sp.add_argument("--batch-size", type=int, default=8)
     sp.set_defaults(fn=cmd_calibrate)
 
+    sp = sub.add_parser("quantize", help="integer transform + full export")
+    common(sp, device=False)
+    sp.add_argument("--max-a", required=True)
+    sp.add_argument("--full-quant", action="store_true")
+    sp.add_argument("--image", help="golden image (jpg/png)")
+    sp.set_defaults(fn=cmd_quantize)
+
+    for name, fn in (("eval-float", cmd_eval_float),
+                     ("eval-int8", cmd_eval_int8)):
+        sp = sub.add_parser(name, help=f"COCO mAP ({name})")
+        common(sp)
+        sp.add_argument("--coco-images", required=True)
+        sp.add_argument("--coco-ann", required=True)
+        sp.add_argument("--limit", type=int, default=None)
+        sp.add_argument("--batch-size", type=int, default=16)
+        sp.add_argument("--conf-thres", type=float, default=0.001)
+        sp.add_argument("--prefetch", action="store_true",
+                        help="async host decode + device staging")
+        if name == "eval-int8":
+            sp.add_argument("--max-a", required=True)
+            sp.add_argument("--full-quant", action="store_true")
+            sp.add_argument("--engine", default="fused",
+                            choices=["fused", "pallas", "packed"])
+        sp.set_defaults(fn=fn)
+
     sp = sub.add_parser("serve",
                         help="batch-coalescing inference over an image "
                              "list (JSONL detections out)")
     common(sp)
-    sp.add_argument("--max-a", required=True)
+    sp.add_argument("--max-a")
+    sp.add_argument("--from-artifacts", action="store_true",
+                    help="load the quantized model from --out's exported "
+                         "artifact tree (the stage-8 production load) "
+                         "instead of --weights/--max-a")
     sp.add_argument("--full-quant", action="store_true")
     sp.add_argument("--engine", default="fused",
                     choices=["fused", "pallas", "packed"])
@@ -267,12 +497,40 @@ def build_parser():
                     help="host image-decode threads feeding the batcher")
     sp.set_defaults(fn=cmd_serve)
 
+    sp = sub.add_parser("accept",
+                        help="one-command accuracy acceptance: prepare "
+                             "-> fp32 gate -> calibrate -> int gates "
+                             "-> K sweep -> report")
+    common(sp, weights=False)
+    sp.add_argument("--checkpoint", help="torch .pt state dict "
+                    "(an ultralytics yolov8{n,s,m,l,x}.pt matching "
+                    "--model)")
+    sp.add_argument("--coco-images", required=True)
+    sp.add_argument("--coco-ann", required=True)
+    sp.add_argument("--limit", type=int, default=None)
+    sp.add_argument("--batch-size", type=int, default=64)
+    sp.add_argument("--conf-thres", type=float, default=1e-8,
+                    help="mAP protocol threshold (runbook default)")
+    sp.add_argument("--prefetch", action="store_true")
+    sp.add_argument("--mode", default="max",
+                    help="calibration reduction (stage_5 lever)")
+    sp.add_argument("--engine", default="fused",
+                    choices=["fused", "pallas", "packed"])
+    sp.add_argument("--k-sweep", default="",
+                    help="extra bit widths, e.g. '6,4' (each gets its "
+                         "own artifact dir + gates)")
+    sp.add_argument("--drop-budget", type=float, default=0.5,
+                    help="max allowed mAP50-95 drop vs fp32 (BASELINE)")
+    sp.set_defaults(fn=cmd_accept)
+
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     ret = args.fn(args)
+    # cmd_eval_* return an EvalResult for cmd_accept; only an int is an
+    # exit code
     return ret if isinstance(ret, int) else 0
 
 

@@ -39,8 +39,27 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      flush, and every request's detections equal a direct pipeline call;
      prints the coalescer's snapshot;
   7. time the whole pipeline of each engine at B=128;
+  8. quantize -> export -> load back -> serve: the phase-2 model's
+     artifact tree exported by export_all with the golden run of one
+     64-px image (the weights, scales and max_a in the tree do not depend
+     on the image size; a 640 golden image makes a tree of GBs of text),
+     loaded back at 640 by model_from_artifacts and by
+     model_from_packed_state_dict, each served on every engine: launch
+     counts as in phase 4, detections equal to the directly built model's
+     on the same engine bit for bit; prints the tree's files and bytes,
+     the export seconds and whether the native Verilog writer was built
+     (g++) or the Python writers ran;
+  9. the eval harness on the card: 32 seeded uint8 images at 640 as a
+     COCO set whose annotations are the CPU pipeline's full-quant
+     detections, jittered and thinned by a seed (so the mAP is neither 0
+     nor 1); evaluate with the fused full-quant pipeline on the card at a
+     batch that leaves a padded tail: its rows equal the CPU pipeline's
+     and those of the same run with prefetch=True (batches staged on the
+     card from pinned memory), its mAP50-95 the CPU run's and the loop
+     oracle's on the same rows;
 then print the kernels line (every kernel with its launches on its path,
-error, times and bound) and, last, the device line.
+error, times and bound; sigma_probe also with the launch floor, an empty
+kernel's device time) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -842,6 +861,218 @@ def time_pipeline(model, device, card: str, engine: str, batch: int = 128,
     return ms
 
 
+def launch_floor_ms() -> float:
+    """Device time of an empty kernel (torch.cuda._sleep(0)) back to back:
+    the least time any launch takes, the floor of a kernel whose bytes and
+    operations take less."""
+    import torch
+
+    from alpha_yolo_quant_torch.engine_profile import device_ms
+
+    return device_ms(lambda: torch.cuda._sleep(0), 1000)
+
+
+def artifacts_phase(model, device, card: str, golden_size: int = 64):
+    """Phase 8: quantize -> export -> load back -> serve on the card. The
+    directly built model's tree from export_all (golden run of one
+    golden_size image), loaded back at the model's size by both loaders;
+    4 uint8 images served on each engine by each loaded model, counted,
+    against the direct model on that engine. Returns the phase's line."""
+    import tempfile
+
+    import torch
+
+    from alpha_yolo_quant_torch.export.artifacts import export_all
+    from alpha_yolo_quant_torch.models.params import init_params
+    from alpha_yolo_quant_torch.native import fastwriter
+    from alpha_yolo_quant_torch.quantize.loadq import (
+        model_from_artifacts, model_from_packed_state_dict,
+    )
+    from alpha_yolo_quant_torch.runtime import fused_ops
+    from alpha_yolo_quant_torch.runtime.golden import golden_forward
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline, slab_plan,
+    )
+
+    t_phase = time.perf_counter()
+    writer = ("native (g++)" if fastwriter() is not None
+              else "python (no g++: the native writer did not build)")
+    x_gold = np.random.default_rng(8).uniform(
+        0, 1, (1, 3, golden_size, golden_size)).astype(np.float32)
+    t0 = time.perf_counter()
+    env = golden_forward(model, x_gold)
+    golden_s = time.perf_counter() - t0
+    warnings = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        export_all(model, env, init_params(model.graph, seed=0), tmp,
+                   warn=warnings.append)
+        export_s = time.perf_counter() - t0
+        files = [os.path.join(d, f) for d, _, fs in os.walk(tmp)
+                 for f in fs]
+        n_bytes = sum(os.path.getsize(f) for f in files)
+        loaded = {"model_from_artifacts": model_from_artifacts(
+                      tmp, model.cfg),
+                  "model_from_packed_state_dict":
+                      model_from_packed_state_dict(tmp, model.cfg)}
+    s = model.cfg.image_size
+    x = torch.as_tensor(np.random.default_rng(9).integers(
+        0, 256, (4, 3, s, s)).astype(np.uint8), device=device)
+    total = 0
+    for engine in ("fused", "pallas", "packed"):
+        want = build_int_pipeline(model, device, engine=engine)[0](x)
+        for name, m in loaded.items():
+            fn, plan = build_int_pipeline(m, device, engine=engine)
+            torch.cuda.synchronize()
+            fused_ops.reset_counts()
+            det, n = fn(x)
+            torch.cuda.synchronize()
+            counts = dict(fused_ops.LAUNCHES)
+            n_slab = slab_plan(m, plan).n_convs if engine == "packed" else 0
+            exp = expected_launches(m, engine, n_slab)
+            seen = {"conv": counts["conv1x1"] + counts["conv3x3"],
+                    **{k: counts[k] for k in exp if k != "conv"}}
+            if seen != exp:
+                raise AssertionError(f"artifacts [{engine}] {name}: "
+                                     f"launches {seen}, expected {exp}")
+            if not (torch.equal(det, want[0]) and torch.equal(n, want[1])):
+                raise AssertionError(f"artifacts [{engine}] {name}: the "
+                                     "loaded model's detections differ "
+                                     "from the built model's")
+            total += int(n.sum())
+        log(f"artifacts [{engine}]: both loaded models launch {exp} per "
+            f"forward and serve {int(want[1].sum())} detections over 4 "
+            f"uint8 {s}px images, equal to the built model bit for bit")
+    return {"phase": "artifacts", "files": len(files), "bytes": n_bytes,
+            "golden_px": golden_size, "golden_s": golden_s,
+            "export_s": export_s, "writer": writer,
+            "bit_budget_warnings": len(warnings),
+            "served_px": s, "detections_compared": total,
+            "seconds": time.perf_counter() - t_phase, "card": card}
+
+
+def eval_phase(model, device, card: str, n_images: int = 32,
+               batch: int = 12):
+    """Phase 9: the eval harness on the card (see the module docstring).
+    Returns the phase's line."""
+    import json as _json
+    import tempfile
+
+    import torch
+
+    from alpha_yolo_quant_torch.data import coco, prefetch
+    from alpha_yolo_quant_torch.eval.harness import evaluate
+    from alpha_yolo_quant_torch.eval.map_oracle import map50_95_oracle
+    from alpha_yolo_quant_torch.eval.records import to_metric_arrays
+    from alpha_yolo_quant_torch.runtime import fused_ops
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline, eval_nms_params,
+    )
+
+    t_phase = time.perf_counter()
+    s = model.cfg.image_size
+    orig_h, orig_w = 480, 640
+    rng = np.random.default_rng(10)
+    u8 = rng.integers(0, 256, (n_images, 3, s, s)).astype(np.uint8)
+    nms = eval_nms_params(model, 0.001)
+    cpu_fn = build_int_pipeline(model, "cpu", plain=True, nms_params=nms)[0]
+    t0 = time.perf_counter()
+    cpu = {}   # image bytes -> the CPU pipeline's (det, n) for that image
+    for i in range(0, n_images, 8):
+        det, n = cpu_fn(u8[i:i + 8].astype(np.float32) / 255.0)
+        for j in range(det.shape[0]):
+            cpu[(u8[i + j].astype(np.float32) / 255.0).tobytes()] = (
+                det[j], n[j])
+    cpu_s = time.perf_counter() - t0
+
+    def cpu_step(imgs):
+        rows = [cpu[np.ascontiguousarray(im).tobytes()] for im in imgs]
+        return (torch.stack([d for d, _ in rows]),
+                torch.stack([n for _, n in rows]))
+
+    images, anns = [], []
+    for i in range(n_images):
+        det, n = cpu[(u8[i].astype(np.float32) / 255.0).tobytes()]
+        det = det[: int(n)].numpy().astype(np.float64)[:24]
+        keep = rng.random(len(det)) > 0.3
+        wh = det[:, 2:4] - det[:, :2]
+        xy1 = det[:, :2] + rng.normal(0, 0.08, (len(det), 2)) * wh
+        wh = wh * np.exp(rng.normal(0, 0.15, (len(det), 2)))
+        sx, sy = orig_w / s, orig_h / s
+        for k in np.nonzero(keep)[0]:
+            anns.append({"id": len(anns) + 1, "image_id": i,
+                         "category_id": int(det[k, 5]) + 1, "iscrowd": 0,
+                         "bbox": [float(xy1[k, 0] * sx),
+                                  float(xy1[k, 1] * sy),
+                                  float(wh[k, 0] * sx),
+                                  float(wh[k, 1] * sy)]})
+        images.append({"id": i, "file_name": f"{i:012d}.jpg",
+                       "height": orig_h, "width": orig_w})
+    with tempfile.TemporaryDirectory() as tmp:
+        ann_path = os.path.join(tmp, "instances.json")
+        with open(ann_path, "w") as f:
+            _json.dump({"images": images, "annotations": anns,
+                        "categories": [{"id": c + 1} for c in range(80)]},
+                       f)
+        ds = coco.CocoValDataset(os.path.join(tmp, "images"), ann_path)
+    arrays = {smp.path: u8[smp.image_id].astype(np.float32) / 255.0
+              for smp in ds.samples}
+    card_fn = build_int_pipeline(model, device, nms_params=nms)[0]
+    # the card's machine has no PIL: within this phase the dataset's image
+    # decode (in data.coco and in data.prefetch's threads) is a lookup of
+    # the seeded arrays; batching, staging, the step, the records and the
+    # metrics are the port's own
+    decode = coco.load_image_square
+    coco.load_image_square = prefetch.load_image_square = \
+        lambda path, size: arrays[path]
+    try:
+        torch.cuda.synchronize()
+        fused_ops.reset_counts()
+        res = evaluate(card_fn, ds, batch, s, device=device)
+        torch.cuda.synchronize()
+        n_conv = fused_ops.LAUNCHES["conv1x1"] + fused_ops.LAUNCHES["conv3x3"]
+        # the same run with batches staged on the card from pinned memory
+        res_pf = evaluate(card_fn, ds, batch, s, prefetch=True,
+                          device=device)
+        res_cpu = evaluate(cpu_step, ds, batch, s, device="cpu")
+    finally:
+        coco.load_image_square = prefetch.load_image_square = decode
+    n_batches = -(-n_images // batch)
+    if n_conv != len(model.graph.convs()) * n_batches:
+        raise AssertionError(f"eval: {n_conv} conv launches for "
+                             f"{n_batches} batches")
+    oracle, _ = map50_95_oracle(*to_metric_arrays(res.ann_rows,
+                                                  res.det_rows))
+    if res.det_rows != res_cpu.det_rows or res.n_images != n_images:
+        raise AssertionError("eval: the card's detection rows differ from "
+                             "the CPU pipeline's")
+    if (res_pf.det_rows, res_pf.map50_95) != (res.det_rows, res.map50_95):
+        raise AssertionError("eval: prefetch=True differs from the "
+                             "synchronous reader on the card")
+    if not res.map50_95 == res_cpu.map50_95 == oracle:
+        raise AssertionError(f"eval: mAP50-95 card {res.map50_95} CPU "
+                             f"{res_cpu.map50_95} oracle {oracle}")
+    if not 0.0 < res.map50_95 < 1.0:
+        raise AssertionError(f"eval: mAP50-95 {res.map50_95} is not "
+                             "inside (0, 1): the annotation jitter failed")
+    log(f"eval: {n_images} images {s}px at batch {batch} "
+        f"({n_images % batch} in a padded tail, {n_conv} conv launches), "
+        f"{len(res.det_rows)} "
+        f"detection rows from the card equal the CPU pipeline's (its "
+        f"{n_images} images took {cpu_s:.1f} s on the host) and the "
+        f"prefetch=True run's, {len(res.ann_rows)} annotations; mAP50-95 "
+        f"{res.map50_95} equals the CPU run's and map50_95_oracle's")
+    return {"phase": "eval", "images": n_images, "batch": batch,
+            "conv_launches": n_conv,
+            "det_rows": len(res.det_rows), "ann_rows": len(res.ann_rows),
+            "map50_95": res.map50_95, "map50_95_oracle": oracle,
+            "images_per_s": res.images_per_s,
+            "images_per_s_wall": res.images_per_s_wall,
+            "prefetch_images_per_s_wall": res_pf.images_per_s_wall,
+            "cpu_pipeline_s": cpu_s, "seconds": time.perf_counter() - t_phase,
+            "note": "rates are smoke output, not metrics", "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -852,6 +1083,7 @@ def main() -> int:
     from alpha_yolo_quant_torch.runtime import _build
     from alpha_yolo_quant_torch.runtime.interpreter import device_plan
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(card)
@@ -879,13 +1111,20 @@ def main() -> int:
     deployed_path(dev, card)
     for engine in ("fused", "pallas", "packed"):
         time_pipeline(model, dev, card, engine)
+    log(json.dumps(artifacts_phase(model, dev, card)))
+    log(json.dumps(eval_phase(model, dev, card)))
+    kres["sigma_probe"]["launch_floor_ms"] = launch_floor_ms()
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=KERNELS[k][0],
              replaces=KERNELS[k][1], launches=launches[k],
              max_abs_err=r["max_abs_err"], ms=r["ms"],
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], library_ms=r["library_ms"],
-             shape=r["shape"])
+             shape=r["shape"],
+             **({"launch_floor_ms": r["launch_floor_ms"]}
+                if "launch_floor_ms" in r else {}))
         for k, r in kres.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -440,3 +440,99 @@ def test_uint8_ingest_on_card_is_ieee_division(cuda):
         quantize_input(torch.as_tensor(x, device=cuda), 8,
                        per_image_amax=True).cpu(),
         quantize_input(torch.as_tensor(x), 8, per_image_amax=True))
+
+
+@pytest.mark.parametrize("engine", ["fused", "pallas", "packed"])
+def test_model_from_artifacts_on_card_equals_built(cuda, engine, tmp_path):
+    """quantize -> export -> load back: the full-quant model loaded from
+    its exported tree serves on the card, launching the engine's kernels,
+    the same detections as the model built directly, bit for bit."""
+    from alpha_yolo_quant_torch.export.artifacts import export_all
+    from alpha_yolo_quant_torch.quantize.loadq import model_from_artifacts
+
+    model = _card_model()
+    x = np.random.default_rng(8).uniform(0, 1, (3, 3, 64, 64)).astype(
+        np.float32)
+    export_all(model, golden_forward(model, x[:1]),
+               init_params(model.graph, seed=0), str(tmp_path),
+               warn=lambda *a: None)
+    loaded = model_from_artifacts(str(tmp_path), model.cfg)
+    xt = torch.as_tensor(x, device=cuda)
+    want = build_int_pipeline(model, cuda, engine=engine)[0](xt)
+    fused_ops.reset_counts()
+    got = build_int_pipeline(loaded, cuda, engine=engine)[0](xt)
+    torch.cuda.synchronize()
+    kernels = {"fused": ("conv1x1", "conv3x3"),
+               "pallas": ("postconv_silu", "postconv_plain"),
+               "packed": ("packed_conv",)}[engine]
+    assert all(fused_ops.LAUNCHES[k] > 0 for k in kernels)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _card_dataset(tmp_path, monkeypatch, n_images=7, size=64):
+    """A COCO-layout dataset of seeded arrays. The card's machine has no
+    PIL, so both readers' image decode becomes a lookup of those arrays;
+    batching, staging and the harness are the port's own."""
+    import json
+
+    from alpha_yolo_quant_torch.data import coco, prefetch
+
+    rng = np.random.default_rng(12)
+    images = [{"id": i, "file_name": f"{i:012d}.jpg", "height": 480,
+               "width": 640} for i in range(n_images)]
+    anns = [{"id": j + 1, "image_id": j % n_images, "category_id": j % 5 + 1,
+             "iscrowd": 0,
+             "bbox": [float(v) for v in rng.uniform(20, 200, 4)]}
+            for j in range(3 * n_images)]
+    path = tmp_path / "instances.json"
+    path.write_text(json.dumps({"images": images, "annotations": anns,
+                                "categories": [{"id": c + 1}
+                                               for c in range(80)]}))
+    ds = coco.CocoValDataset(str(tmp_path / "images"), str(path))
+    arrays = {s.path: rng.uniform(0, 1, (3, size, size)).astype(np.float32)
+              for s in ds.samples}
+    for mod in (coco, prefetch):
+        monkeypatch.setattr(mod, "load_image_square",
+                            lambda p, sz: arrays[p])
+    return ds
+
+
+def test_prefetch_stages_on_card_equal_sync_reader(cuda, tmp_path,
+                                                   monkeypatch):
+    """prefetch_batches with device=cuda: each batch is a float32 tensor
+    on the card, copied from pinned memory on the consumer's stream, equal
+    to data.coco.batches exactly; padded tail entries carry None."""
+    from alpha_yolo_quant_torch.data.coco import batches
+    from alpha_yolo_quant_torch.data.prefetch import prefetch_batches
+
+    ds = _card_dataset(tmp_path, monkeypatch)
+    want = list(batches(ds, 3, 64))
+    got = list(prefetch_batches(ds, 3, 64, decode_workers=2, device=cuda))
+    assert len(got) == len(want) == 3
+    for (wi, ws), (gi, gs) in zip(want, got):
+        assert gi.device.type == "cuda" and gi.dtype == torch.float32
+        assert torch.equal(gi.cpu(), torch.as_tensor(wi))
+        assert [s.image_id if s else None for s in ws] == \
+            [s.image_id if s else None for s in gs]
+    assert got[-1][1][-1] is None
+
+
+def test_evaluate_prefetch_on_card_equals_sync(cuda, tmp_path, monkeypatch):
+    """evaluate(prefetch=True) on the card gives the rows and mAP of
+    prefetch=False, with the fused engine's kernels launched."""
+    from alpha_yolo_quant_torch.eval.harness import evaluate
+    from alpha_yolo_quant_torch.runtime.interpreter import eval_nms_params
+
+    ds = _card_dataset(tmp_path, monkeypatch)
+    model = _card_model()
+    step = build_int_pipeline(model, cuda,
+                              nms_params=eval_nms_params(model, 0.001))[0]
+    want = evaluate(step, ds, 3, 64, device=cuda)
+    fused_ops.reset_counts()
+    got = evaluate(step, ds, 3, 64, prefetch=True, device=cuda)
+    assert fused_ops.LAUNCHES["conv1x1"] + fused_ops.LAUNCHES["conv3x3"] \
+        == 3 * len(model.graph.convs())
+    assert got.n_images == want.n_images == len(ds)
+    assert len(got.det_rows) > 0
+    assert (got.det_rows, got.ann_rows, got.map50_95) == \
+        (want.det_rows, want.ann_rows, want.map50_95)

@@ -201,13 +201,27 @@ _DIGEST = textwrap.dedent("""
 
 
 def test_port_runs_without_jax():
-    """Building the model (graph, params, calibration, quantize) and running
-    the 64-px pipeline and golden oracle through the port never loads jax
-    or any module of the JAX package (a deployment may have neither), and
-    the model built that way equals the one the JAX package builds."""
+    """Building the model (graph, params, calibration, quantize), running
+    the 64-px pipeline and golden oracle, exporting the artifact tree and
+    loading it back through the port, and importing the CLI, eval, export
+    and prefetch modules never loads jax or any module of the JAX package
+    (a deployment may have neither), and the model built that way equals
+    the one the JAX package builds."""
     code = _DIGEST + textwrap.dedent("""
         import sys
+        import tempfile
         import alpha_yolo_quant_torch
+        import alpha_yolo_quant_torch.cli
+        import alpha_yolo_quant_torch.data.prefetch
+        import alpha_yolo_quant_torch.eval.harness
+        import alpha_yolo_quant_torch.eval.map_oracle
+        import alpha_yolo_quant_torch.eval.metrics
+        import alpha_yolo_quant_torch.eval.plots
+        import alpha_yolo_quant_torch.utils.debug_dump
+        import alpha_yolo_quant_torch.utils.run_log
+        from alpha_yolo_quant_torch.export.artifacts import export_all
+        from alpha_yolo_quant_torch.quantize.loadq import (
+            model_from_packed_state_dict)
         from alpha_yolo_quant_torch.config import QuantConfig
         from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
         from alpha_yolo_quant_torch.models.params import init_params
@@ -235,6 +249,10 @@ def test_port_runs_without_jax():
         fn, _ = build_int_pipeline(m, "cpu")
         det, n = fn(x)
         assert det.shape == (2, 300, 6)
+        with tempfile.TemporaryDirectory() as tmp:
+            export_all(m, env, p, tmp, warn=lambda *a: None)
+            m2 = model_from_packed_state_dict(tmp, cfg)
+        assert model_digest(m2) == model_digest(m)
         print("MAX_A", repr(sorted(max_a.items())))
         print("DIGEST", model_digest(m))
         bad = sorted(k for k in sys.modules if k == "jax" or
