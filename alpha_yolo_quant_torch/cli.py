@@ -10,14 +10,19 @@ and output lines):
   eval-int8  quantized COCO mAP (float NMS or full q_NMS)
   serve      batch-coalescing inference over an image list (JSONL out),
              from --weights/--max-a or from an exported tree
+  memsim     SRAM allocation simulation (memory.txt, final_memory.txt)
+  demo       golden-image smoke test with a detection plot
+  info       model/plan summary
   accept     one-command accuracy acceptance (all gates + K sweep)
+  bench      whole-pipeline throughput on one card (bench.py)
 
-calibrate, eval-*, serve and accept run on ``--device`` (default
-``cuda``): without a card they stop unless ``--device cpu`` is given.
-``--engine`` is one of the port's engines (fused, pallas, packed). Image
-files are read with PIL and the eval run plot is drawn with matplotlib;
-where PIL is absent, drive serving.BatchCoalescer or eval.harness.evaluate
-with in-memory arrays instead.
+calibrate, eval-*, serve, demo, accept and bench run on ``--device``
+(default ``cuda``): without a card they stop unless ``--device cpu`` is
+given. memsim and info are host-only. ``--engine`` is one of the port's
+engines (fused, pallas, packed). Image files are read with PIL and plots
+are drawn with matplotlib; where PIL is absent, drive
+serving.BatchCoalescer or eval.harness.evaluate with in-memory arrays
+instead (demo and memsim --heatmaps need PIL or matplotlib).
 
 Run as: python -m alpha_yolo_quant_torch.cli <command> [flags]
 """
@@ -339,6 +344,110 @@ def cmd_serve(args):
     return 1 if n_failed else 0
 
 
+def cmd_memsim(args):
+    from alpha_yolo_quant_torch.export.artifacts import make_dirs
+    from alpha_yolo_quant_torch.hwsim.sram import (
+        DEFAULT_CELLS, min_buffer_cells, simulate,
+    )
+    from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
+
+    cfg = _cfg(args)
+    graph = build_yolov8_graph(cfg)
+    if args.min_buffer:
+        # capacity what-if from the static walk
+        mc = min_buffer_cells(graph, cfg.image_size)
+        peak = simulate(graph, cfg.image_size, 1 << 40).peak_cells
+        frag = mc - peak
+        print(f"min buffer: {mc} cells ({mc // 8} rows of 8) for "
+              f"{cfg.model}@{cfg.image_size} | true peak {peak} cells"
+              + (f" (+{frag} first-fit fragmentation)" if frag else
+                 " (zero fragmentation: capacity == peak)")
+              + f" | reference buffer {DEFAULT_CELLS}: "
+              + ("fits" if mc <= DEFAULT_CELLS else "DOES NOT FIT"))
+        return 0
+    sim = simulate(graph, cfg.image_size)
+    make_dirs(args.out)
+    sim.write_memory_txt(os.path.join(args.out, "results", "memory.txt"))
+    sim.write_final_memory(os.path.join(args.out, "results",
+                                        "final_memory.txt"))
+    if args.heatmaps:
+        from alpha_yolo_quant_torch.eval.plots import plot_memory_heatmaps
+
+        n = plot_memory_heatmaps(sim, args.out)
+        print(f"{n} per-layer heatmaps -> {args.out}/memory/")
+    print(f"peak occupancy: {sim.peak_cells} cells "
+          f"({sim.peak_rows} rows of 8) -> {args.out}/results/")
+
+
+def cmd_demo(args):
+    import torch
+
+    from alpha_yolo_quant_torch.data.coco import load_image_square
+    from alpha_yolo_quant_torch.eval.plots import plot_detections
+    from alpha_yolo_quant_torch.eval.records import COCO_NAMES
+    from alpha_yolo_quant_torch.quantize.transform import (
+        build_quantized_model,
+    )
+    from alpha_yolo_quant_torch.runtime.interpreter import build_int_pipeline
+    from alpha_yolo_quant_torch.utils.io import read_max_a
+
+    cfg = _cfg(args)
+    device = _device(args)
+    graph, params = _graph_params(args, cfg)
+    model = build_quantized_model(graph, params, read_max_a(args.max_a), cfg)
+    fn, _ = build_int_pipeline(model, device, dfl_w_float=params["dfl"]["w"],
+                               engine=args.engine)
+    img = load_image_square(args.image, cfg.image_size)[None]
+    det, n_det = fn(torch.as_tensor(img, device=device))
+    det = det[0].cpu().numpy()[: int(n_det[0])]
+    print(f"{len(det)} detections")
+    for row in det[:20]:
+        print(f"  {COCO_NAMES[int(row[5])]:<15} {row[4]:.3f} "
+              f"[{row[0]:.1f}, {row[1]:.1f}, {row[2]:.1f}, {row[3]:.1f}]")
+    if args.plot:
+        plot_detections(img[0], det[:, :4],
+                        [COCO_NAMES[int(c)] for c in det[:, 5]],
+                        det[:, 4], args.plot)
+        print(f"plot -> {args.plot}")
+
+
+def cmd_info(args):
+    """Model/plan summary: layers, channels, taps, scales."""
+    from alpha_yolo_quant_torch.hwsim.sram import simulate
+    from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
+
+    cfg = _cfg(args)
+    graph = build_yolov8_graph(cfg)
+    convs = graph.convs()
+    n_params = sum(c.cout * c.cin * c.kernel * c.kernel + c.cout
+                   for c in convs)
+    print(f"{cfg.model} K={cfg.k} {cfg.image_size}x{cfg.image_size}  "
+          f"{len(convs)} convs, {n_params/1e6:.2f}M params")
+    print(f"{'layer':<22}{'key':<20}{'shape':<16}{'k/s/p':<8}"
+          f"{'tap':<18}{'out_tap'}")
+    for c in convs:
+        print(f"{c.name:<22}{c.key:<20}"
+              f"{f'{c.cin}->{c.cout}':<16}"
+              f"{f'{c.kernel}/{c.stride}/{c.padding}':<8}"
+              f"{c.tap or '':<18}{c.out_tap or ''}")
+    if args.max_a:
+        from alpha_yolo_quant_torch.utils.io import read_max_a
+
+        max_a = read_max_a(args.max_a)
+        print("\ncalibration (tap: a):")
+        for name, v in max_a.items():
+            print(f"  {name:<20} {v:.6g}")
+    sim = simulate(graph, cfg.image_size)
+    print(f"\nSRAM plan: peak {sim.peak_cells} cells "
+          f"({sim.peak_rows} rows of 8)")
+
+
+def cmd_bench(args):
+    from alpha_yolo_quant_torch import bench
+
+    bench.run(args)
+
+
 def cmd_accept(args):
     """One-command accuracy acceptance: prepare -> gate 1 (fp32 mAP) ->
     calibrate -> gate 2 (int, float NMS) -> gate 3 (int full-quant,
@@ -476,6 +585,31 @@ def build_parser():
                             choices=["fused", "pallas", "packed"])
         sp.set_defaults(fn=fn)
 
+    sp = sub.add_parser("memsim", help="SRAM allocation simulation")
+    common(sp, weights=False, device=False)
+    sp.add_argument("--heatmaps", action="store_true",
+                    help="emit per-layer occupancy heatmaps into memory/")
+    sp.add_argument("--min-buffer", action="store_true",
+                    help="bisect the smallest SRAM capacity that fits "
+                         "this model/size instead of simulating at the "
+                         "reference capacity")
+    sp.set_defaults(fn=cmd_memsim)
+
+    sp = sub.add_parser("demo", help="single-image smoke run")
+    common(sp)
+    sp.add_argument("--max-a", required=True)
+    sp.add_argument("--full-quant", action="store_true")
+    sp.add_argument("--engine", default="fused",
+                    choices=["fused", "pallas", "packed"])
+    sp.add_argument("--image", required=True)
+    sp.add_argument("--plot")
+    sp.set_defaults(fn=cmd_demo)
+
+    sp = sub.add_parser("info", help="model/plan summary")
+    common(sp, weights=False, device=False)
+    sp.add_argument("--max-a")
+    sp.set_defaults(fn=cmd_info)
+
     sp = sub.add_parser("serve",
                         help="batch-coalescing inference over an image "
                              "list (JSONL detections out)")
@@ -522,6 +656,13 @@ def build_parser():
     sp.add_argument("--drop-budget", type=float, default=0.5,
                     help="max allowed mAP50-95 drop vs fp32 (BASELINE)")
     sp.set_defaults(fn=cmd_accept)
+
+    from alpha_yolo_quant_torch import bench
+
+    sp = sub.add_parser("bench", help="whole-pipeline throughput on one "
+                                      "card")
+    bench.add_arguments(sp)
+    sp.set_defaults(fn=cmd_bench)
 
     return p
 

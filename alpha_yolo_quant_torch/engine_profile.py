@@ -20,7 +20,6 @@ tap masks keep.
 from __future__ import annotations
 
 import json
-import subprocess
 from collections import defaultdict
 
 import numpy as np
@@ -30,6 +29,7 @@ from alpha_yolo_quant_torch.runtime import fused_ops
 from alpha_yolo_quant_torch.runtime.interpreter import (
     build_int_pipeline, int_forward, quantize_input,
 )
+from alpha_yolo_quant_torch.utils.profiling import card_name
 
 BATCH = 128
 # one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, int8 tensor ops/s
@@ -43,10 +43,10 @@ PORT_KERNELS = {"conv_wgmma": "conv1x1/conv3x3", "postconv_kernel":
 
 
 def build_model(image_size: int = 640, device="cuda",
-                full_quant: bool = True):
-    """yolov8n K=8 full quant (or partial), random weights from seed 0,
-    calibrated by the port's float forward on two seeded images (the model
-    chip_smoke.py serves)."""
+                full_quant: bool = True, model: str = "yolov8n", k: int = 8):
+    """yolov8n K=8 full quant (or partial; or another model and K), random
+    weights from seed 0, calibrated by the port's float forward on two
+    seeded images (the model chip_smoke.py serves and bench.py times)."""
     from alpha_yolo_quant_torch.config import QuantConfig
     from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
     from alpha_yolo_quant_torch.models.params import init_params
@@ -57,7 +57,7 @@ def build_model(image_size: int = 640, device="cuda",
         build_quantized_model,
     )
 
-    cfg = QuantConfig(model="yolov8n", k=8, full_quant=full_quant,
+    cfg = QuantConfig(model=model, k=k, full_quant=full_quant,
                       image_size=image_size)
     graph = build_yolov8_graph(cfg)
     params = init_params(graph, seed=0)
@@ -259,10 +259,7 @@ def profile_engine(model, engine: str, x: torch.Tensor) -> dict:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("engine_profile: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_name()
     model = build_model()
     s = model.cfg.image_size
     x = torch.as_tensor(np.random.default_rng(3).integers(

@@ -2,9 +2,9 @@
 (reference utils/coco.py:105-149, utils/plot_run_results.py:29-61,
 utils/sigmoid_visual.py:1-25). Headless-safe (Agg).
 
-Counterpart of alpha_yolo_quant_tpu/eval/plots.py; matplotlib is imported
-only when a plot is drawn. The SRAM heatmaps (plot_memory_heatmaps) come
-with the hwsim port.
+Counterpart of alpha_yolo_quant_tpu/eval/plots.py, with the per-layer
+SRAM heatmaps of hwsim.sram; matplotlib is imported only when a plot is
+drawn.
 """
 
 from __future__ import annotations
@@ -59,6 +59,42 @@ def plot_run_results(out_dir: str, path: Optional[str] = None) -> str:
     fig.savefig(path, bbox_inches="tight", dpi=120)
     plt.close(fig)
     return path
+
+
+def plot_memory_heatmaps(sim, out_dir: str, grid_width: int = 512,
+                         limit: Optional[int] = None) -> int:
+    """Per-layer SRAM occupancy heatmaps (reference utils/mem_ckecker.py:
+    167-174 plot_memory: one seaborn heatmap per traced op into memory/,
+    titled 'MEM: <occupied> | READ: <r> | WRITE: <w>', file named by the
+    write tensor). Row occupancy is reshaped into a (H, grid_width) raster.
+    Returns the number of images written."""
+    plt = _plt()
+    mem_dir = os.path.join(out_dir, "memory")
+    os.makedirs(mem_dir, exist_ok=True)
+    total_rows = sim.total_rows
+    height = -(-total_rows // grid_width)
+    n = 0
+    snaps = sim.snapshots if limit is None else sim.snapshots[:limit]
+    for read_name, write_name, segs in snaps:
+        occ = np.zeros(height * grid_width, np.float32)
+        used = 0
+        for start, rows in segs:
+            occ[start:start + rows] = 1.0
+            used += rows
+        fig, ax = plt.subplots(figsize=(6, 4))
+        ax.imshow(occ.reshape(height, grid_width), aspect="auto",
+                  interpolation="nearest", cmap="viridis", vmin=0, vmax=1)
+        ax.set_title(f"MEM: {used * sim.columns} | READ: {read_name} | "
+                     f"WRITE: {write_name}", fontsize=8)
+        ax.set_xlabel("row % grid")
+        ax.set_ylabel("row // grid")
+        safe = "".join(c if c.isalnum() or c in "._-" else "_"
+                       for c in write_name)
+        fig.savefig(os.path.join(mem_dir, f"{safe}.png"),
+                    bbox_inches="tight", dpi=90)
+        plt.close(fig)
+        n += 1
+    return n
 
 
 def plot_lut(lut, path: str) -> str:

@@ -400,3 +400,38 @@ def build_yolov8_graph(cfg: QuantConfig) -> Graph:
     }
     return Graph(cfg=cfg, nodes=tuple(nodes), input_edge="image",
                  outputs=outputs)
+
+
+def node_costs(graph: Graph, image_size: int) -> List[int]:
+    """Conv MACs of one image per node, 0 for the other nodes, from a shape
+    walk of the IR (the JAX package's parallel/pipeline._node_costs, node
+    for node): the numerator of the bench's mfu and the weight a pipeline
+    stage balancer splits."""
+    shapes = {graph.input_edge: (3, image_size, image_size)}
+    costs = []
+    for node in graph.nodes:
+        if isinstance(node, ConvNode):
+            _, h, w = shapes[node.src]
+            ho = (h + 2 * node.padding - node.kernel) // node.stride + 1
+            wo = (w + 2 * node.padding - node.kernel) // node.stride + 1
+            shapes[node.dst] = (node.cout, ho, wo)
+            costs.append(node.cin * node.cout * node.kernel ** 2 * ho * wo)
+            continue
+        costs.append(0)
+        if isinstance(node, SplitNode):
+            c, h, w = shapes[node.src]
+            shapes[node.dst1] = shapes[node.dst2] = (c // 2, h, w)
+        elif isinstance(node, ResidualAddNode):
+            shapes[node.dst] = shapes[node.base]
+        elif isinstance(node, ConcatNode):
+            cs = [shapes[e] for e in node.srcs]
+            shapes[node.dst] = (sum(c for c, _, _ in cs),) + cs[0][1:]
+        elif isinstance(node, MaxPoolNode):
+            c, h, w = shapes[node.src]
+            ho = (h + 2 * node.padding - node.kernel) // node.stride + 1
+            wo = (w + 2 * node.padding - node.kernel) // node.stride + 1
+            shapes[node.dst] = (c, ho, wo)
+        elif isinstance(node, UpsampleNode):
+            c, h, w = shapes[node.src]
+            shapes[node.dst] = (c, h * node.factor, w * node.factor)
+    return costs

@@ -182,17 +182,25 @@ def _select_candidates(pred, max_nms, conf_thres, pre_topk=None,
 
 
 def non_max_suppression(preds, params: NmsParams = NmsParams(),
-                        score_map=None):
+                        score_map=None, preselected: bool = False):
     """Batched NMS. preds: (B, 4+nc, N) xywh + class scores, or the
     pre-reduced (boxes_xywh (B,4,N), conf (B,N), cls (B,N)) tuple.
+    preselected=True: preds is already the candidate tuple (boxes_xyxy
+    (B,m,4), conf (B,m), cls (B,m), valid (B,m)) in descending (conf,
+    lowest-index-first) order, interpreter.decode_select_sparse's output,
+    and the select step is skipped.
     score_map: optional monotone map applied to the kept rows' scores
     (the serving path's deferred 16-bit sigmoid).
 
     Returns (det (B, max_det, 6) float32 rows [x1,y1,x2,y2,conf,cls],
     descaled for q_NMS, zero past n_det; n_det (B,) int32)."""
     p = params
-    boxes, conf, cls, valid = _select_candidates(
-        preds, p.max_nms, p.conf_thres, p.pre_topk, int_scores=p.quantized)
+    if preselected:
+        boxes, conf, cls, valid = preds
+    else:
+        boxes, conf, cls, valid = _select_candidates(
+            preds, p.max_nms, p.conf_thres, p.pre_topk,
+            int_scores=p.quantized)
     if p.trunc_boxes:
         boxes = torch.trunc(boxes)
     offset = cls * (0.0 if p.agnostic else p.max_wh)

@@ -356,6 +356,61 @@ def _decode_serving_per_level(model: QuantizedModel, plan: Dict,
     return torch.cat(dboxes, 2), torch.cat(confs, 1), torch.cat(cids, 1)
 
 
+def decode_select_sparse(model: QuantizedModel, plan: Dict, outs: Dict,
+                         *, pre_topk: int, conf_thres: float):
+    """Serving decode fused with the q_NMS candidate selection, conf first
+    (counterpart of the JAX function of the same name).
+
+    The dense path decodes the boxes of all N anchors and then keeps the
+    top ``pre_topk`` by class confidence. Confidence alone decides that
+    cut, so this path ranks first, by the same packed key the dense select
+    sorts (``conf_sort_key``: unique, so any descending order is the
+    dense one), and runs the DFL softmax, the DFL requant, the anchors and
+    dist2bbox only for the kept anchors, with the dense path's per-anchor
+    arithmetic. Needs head_requant outputs (int8 box, int16 class edges)
+    and N < 2^14 anchors. Returns (boxes_xyxy (B,m,4), conf (B,m),
+    cid (B,m), valid (B,m)) in descending (conf, lowest-index-first)
+    order: non_max_suppression(preselected=True)'s input."""
+    from alpha_yolo_quant_torch.postprocess.nms import (
+        conf_from_key, conf_sort_key, index_from_key, xywh2xyxy,
+    )
+
+    h = model.head
+    confs, cids, boxes, shapes = [], [], [], []
+    for level in ("p3", "p4", "p5"):
+        cq = outs[f"{level}_cls"]                        # (b,80,h,w)
+        b = cq.shape[0]
+        conf_l, cid_l = _conf_cid_packed(cq)
+        confs.append(conf_l.reshape(b, -1))
+        cids.append(cid_l.reshape(b, -1))
+        bq = outs[f"{level}_box"]                        # int8 (b,64,h,w)
+        shapes.append((bq.shape[2], bq.shape[3]))
+        boxes.append(bq.reshape(b, 64, -1))
+    conf = torch.cat(confs, 1)
+    cid = torch.cat(cids, 1)
+    box_flat = torch.cat(boxes, 2)                       # (b,64,N) int8
+    n = conf.shape[1]
+    if n >= 1 << 14:
+        raise ValueError(f"sparse select needs N < 2^14 anchors, got {n}")
+    m = min(pre_topk, n)
+    skey = torch.topk(conf_sort_key(conf, n), m, dim=1, sorted=True).values
+    conf_s = conf_from_key(skey).to(torch.float32)
+    idx = index_from_key(skey, n).to(torch.int64)        # (b,m)
+    cid_s = torch.gather(cid, 1, idx)
+    bins = torch.gather(box_flat, 2, idx[:, None, :].expand(-1, 64, -1))
+    p = _dfl_softmax_probs(bins.to(torch.int64).reshape(-1, 4, 16, m), 2,
+                           plan["head"]["exp_lut"])
+    dfl_q = _dfl_requant(model, plan, p, 2)              # (b,4,m)
+    anchors, strides = make_anchors(shapes, device=box_flat.device)
+    anchors_q = torch.round(anchors * h.anchor_scale)    # (2,N)
+    a_g = anchors_q.T[idx]                               # (b,m,2)
+    s_g = strides[0][idx]                                # (b,m)
+    dbox = dist2bbox(dfl_q.to(torch.float32),
+                     a_g.transpose(1, 2)) * s_g[:, None, :]
+    return (xywh2xyxy(dbox.transpose(1, 2)), conf_s, cid_s,
+            conf_s > conf_thres)
+
+
 def decode_full_quant(model: QuantizedModel, plan: Dict, outs: Dict,
                       sigmoid_cls: bool = True, reduce_cls: bool = False,
                       pre_requantized: bool = False):
@@ -435,7 +490,8 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
                        pad_batch_to: Optional[int] = None,
                        options: Optional[EngineOptions] = None,
                        coalesce_requests: Optional[int] = None,
-                       plain: bool = False, engine: str = "fused"):
+                       plain: bool = False, engine: str = "fused",
+                       sparse_select: bool = False):
     """Return ``(fn, plan)``: fn maps images (NCHW float32 in [0, 1] or
     uint8, numpy or torch) to detections ``(det (B,300,6), n_det (B,))``
     on ``device``.
@@ -452,7 +508,12 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
     coalesce_requests=N: fn takes N request arrays, quantizes each, runs
     one forward over their concatenation and returns one result per
     request. plain: convs through their plain versions; engine: "fused",
-    "pallas" or "packed" (see int_forward)."""
+    "pallas" or "packed" (see int_forward).
+    sparse_select: decode only the top pre_topk anchors by class score
+    (decode_select_sparse), where the pipeline is eligible: full quant with
+    NMS, quantized NMS params with a pre_topk cut and the deferred
+    sigmoid, and N < 2^14 anchors (JAX's rule); elsewhere the dense decode
+    runs. Bit-identical to the dense decode and select either way."""
     from alpha_yolo_quant_torch.postprocess.nms import (
         NmsParams, non_max_suppression, q_nms_params,
     )
@@ -489,7 +550,19 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
         dfl_w = torch.as_tensor(np.asarray(dfl_w_float), dtype=torch.float32,
                                 device=device)
 
+    n_anchors = sum((model.cfg.image_size // st) ** 2 for st in STRIDES)
+    use_sparse = bool(sparse_select and full and with_nms
+                      and score_map is not None and nms_params.quantized
+                      and nms_params.pre_topk and n_anchors < (1 << 14))
+
     def _post(outs):
+        if use_sparse:
+            cand = decode_select_sparse(
+                model, plan, outs,
+                pre_topk=min(nms_params.pre_topk, nms_params.max_nms),
+                conf_thres=nms_params.conf_thres)
+            return non_max_suppression(cand, nms_params,
+                                       score_map=score_map, preselected=True)
         if full:
             preds = decode_full_quant(model, plan, outs,
                                       sigmoid_cls=score_map is None,

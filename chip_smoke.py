@@ -57,6 +57,18 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      and those of the same run with prefetch=True (batches staged on the
      card from pinned memory), its mAP50-95 the CPU run's and the loop
      oracle's on the same rows;
+ 10. the conf-first sparse decode, the bench, the profiler and hwsim:
+     (a) phase 4's three requests through build_int_pipeline(
+     sparse_select=True) on each engine, counted: detections and launches
+     equal phase 4's dense run's; then B=128 uint8 fused dense and sparse
+     timed in turns (dense, sparse, sparse, dense); (b) the port's bench
+     (bench.main) for fused f32 and u8, pallas u8, packed u8 and fused
+     with two coalesced requests of 64, each counted (its engine's
+     kernels must launch), its JSON line printed; (c) one B=8 fused batch
+     inside profiling.device_trace, whose chrome trace must hold the conv
+     kernels' device events; (d) the CLI's info, memsim and memsim
+     --min-buffer at 640 (host only): peak 2,867,200 cells, the reference
+     buffer, and final_memory.txt written; prints the phase's seconds;
 then print the kernels line (every kernel with its launches on its path,
 error, times and bound; sigma_probe also with the launch floor, an empty
 kernel's device time) and, last, the device line.
@@ -64,6 +76,8 @@ kernel's device time) and, last, the device line.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -548,7 +562,7 @@ def serve(model, device):
                                      plain=True)
     want = plain_fn(*reqs)
     torch.cuda.synchronize()
-    launches, plans = {}, {}
+    launches, plans, per_engine = {}, {}, {}
     for engine in ("fused", "pallas", "packed"):
         torch.cuda.synchronize()
         fused_ops.reset_counts()
@@ -586,7 +600,8 @@ def serve(model, device):
             f"images, all finite)")
         launches.update({k: counts[k] for k in ENGINE_KERNELS[engine]})
         plans[engine] = plan
-    return launches, plans, reqs
+        per_engine[engine] = counts
+    return launches, plans, reqs, want, per_engine
 
 
 def golden_heads(model, plan, x_u8):
@@ -1073,6 +1088,165 @@ def eval_phase(model, device, card: str, n_images: int = 32,
             "note": "rates are smoke output, not metrics", "card": card}
 
 
+def sparse_phase(model, device, card: str, reqs, dense, per_engine,
+                 batch: int = 128):
+    """Phase 10a: phase 4's three coalesced requests through
+    build_int_pipeline(sparse_select=True) on each engine, counted: the
+    detections and the launches must equal phase 4's dense run's. Then
+    B=128 uint8 fused dense and sparse timed in turns (dense, sparse,
+    sparse, dense) with profiling.bench_fn. Returns the phase's fields."""
+    import torch
+
+    from alpha_yolo_quant_torch.runtime import fused_ops
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline,
+    )
+    from alpha_yolo_quant_torch.utils.profiling import bench_fn
+
+    for engine in ("fused", "pallas", "packed"):
+        torch.cuda.synchronize()
+        fused_ops.reset_counts()
+        fn, _ = build_int_pipeline(model, device, coalesce_requests=3,
+                                   engine=engine, sparse_select=True)
+        got = fn(*reqs)
+        torch.cuda.synchronize()
+        counts = dict(fused_ops.LAUNCHES)
+        if counts != per_engine[engine]:
+            raise AssertionError(f"sparse [{engine}]: launches {counts}, "
+                                 f"the dense run's {per_engine[engine]}")
+        for i, ((det, n), (det_d, n_d)) in enumerate(zip(got, dense)):
+            if not (torch.equal(det, det_d) and torch.equal(n, n_d)):
+                raise AssertionError(f"sparse [{engine}] request {i}: "
+                                     "detections differ from the dense run")
+        log(f"sparse [{engine}]: 3 coalesced requests equal phase 4's dense "
+            f"detections bit for bit ({sum(int(n.sum()) for _, n in got)} "
+            f"detections), launches {counts} as phase 4's")
+    s = model.cfg.image_size
+    x = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 256, (batch, 3, s, s)).astype(np.uint8), device=device)
+    fns = {sparse: build_int_pipeline(model, device,
+                                      sparse_select=sparse)[0]
+           for sparse in (False, True)}
+    runs = [(sparse, bench_fn(fns[sparse], x, iters=3, warmup=1,
+                              device=device))
+            for sparse in (False, True, True, False)]
+    ms = {k: [t for sp, t in runs if sp == k] for k in (False, True)}
+    log(f"sparse: B={batch} {s}px uint8 fused, CUDA events per batch in "
+        f"turns dense {runs[0][1]:.2f}, sparse {runs[1][1]:.2f}, sparse "
+        f"{runs[2][1]:.2f}, dense {runs[3][1]:.2f} ms on {card}")
+    return {"dense_ms": ms[False], "sparse_ms": ms[True]}
+
+
+BENCH_RUNS = [   # bench.main arguments timed in phase 10b
+    dict(engine="fused"), dict(engine="fused", input_dtype="u8"),
+    dict(engine="pallas", input_dtype="u8"),
+    dict(engine="packed", input_dtype="u8"),
+    dict(engine="fused", coalesce=2, batch=64)]
+
+
+def bench_phase(device) -> list:
+    """Phase 10b: the port's bench on the card for each of BENCH_RUNS,
+    counted: each run must launch its engine's kernels. Returns the JSON
+    lines (printed by bench.main as it runs)."""
+    import torch
+
+    from alpha_yolo_quant_torch import bench
+    from alpha_yolo_quant_torch.runtime import fused_ops
+
+    lines = []
+    for kw in BENCH_RUNS:
+        torch.cuda.synchronize()
+        fused_ops.reset_counts()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):   # bench's card/ms line
+            line = bench.main(device=str(device), **kw)
+        torch.cuda.synchronize()
+        log(err.getvalue().strip())
+        counts = dict(fused_ops.LAUNCHES)
+        if min(counts[k] for k in ENGINE_KERNELS[kw["engine"]]) < 1:
+            raise AssertionError(f"bench {line['metric']} [{kw['engine']}]:"
+                                 f" its kernels did not launch: {counts}")
+        if not line["value"] > 0 or line["device"] != \
+                torch.cuda.get_device_name(device):
+            raise AssertionError(f"bench: bad line {line}")
+        log(f"bench {line['metric']} [{kw['engine']}]: launches {counts}")
+        lines.append(dict(line, engine=kw["engine"]))
+    return lines
+
+
+def profiling_phase(model, device, batch: int = 8) -> dict:
+    """Phase 10c: one B=8 fused batch inside profiling.device_trace; its
+    chrome trace must hold device kernel events of the conv kernels."""
+    import tempfile
+
+    import torch
+
+    from alpha_yolo_quant_torch.engine_profile import PORT_KERNELS
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline,
+    )
+    from alpha_yolo_quant_torch.utils.profiling import device_trace
+
+    s = model.cfg.image_size
+    x = torch.as_tensor(np.random.default_rng(11).integers(
+        0, 256, (batch, 3, s, s)).astype(np.uint8), device=device)
+    fn, _ = build_int_pipeline(model, device)
+    fn(x)
+    torch.cuda.synchronize()
+    conv_symbol = next(k for k, v in PORT_KERNELS.items()
+                       if v == "conv1x1/conv3x3")
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp) as path:
+            fn(x)
+            torch.cuda.synchronize()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    convs = [e for e in kernels if conv_symbol in e.get("name", "")]
+    n_conv = len(model.graph.convs())
+    if len(convs) < n_conv:
+        raise AssertionError(f"profiling: the trace holds {len(convs)} "
+                             f"{conv_symbol} kernel events of {len(kernels)}"
+                             f" device kernels, expected {n_conv}")
+    log(f"profiling: device_trace of one B={batch} fused batch holds "
+        f"{len(kernels)} device kernel events, {len(convs)} of them "
+        f"{conv_symbol} ({sum(e.get('dur', 0) for e in convs) / 1e3:.3f} "
+        f"ms)")
+    return {"kernel_events": len(kernels), "conv_events": len(convs)}
+
+
+def hwsim_phase() -> dict:
+    """Phase 10d: the CLI's info, memsim and memsim --min-buffer at 640 on
+    the card's host (no PIL, no matplotlib there): the yolov8n plan's peak
+    must be the reference buffer, 2,867,200 cells, and final_memory.txt
+    written."""
+    import tempfile
+
+    from alpha_yolo_quant_torch import cli
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if cli.main(argv) not in (0, None):
+                raise AssertionError(f"cli {argv[0]} failed")
+        return buf.getvalue()
+
+    info = run(["info"]).splitlines()
+    with tempfile.TemporaryDirectory() as tmp:
+        memsim = run(["memsim", "--out", tmp]).strip()
+        final = os.path.join(tmp, "results", "final_memory.txt")
+        if not os.path.isfile(final) or os.path.getsize(final) == 0:
+            raise AssertionError("memsim wrote no final_memory.txt")
+    min_buf = run(["memsim", "--min-buffer"]).strip()
+    want = "peak occupancy: 2867200 cells"
+    if not memsim.startswith(want) or "min buffer: 2867200 cells" not in \
+            min_buf or not info[-1].startswith("SRAM plan: peak 2867200"):
+        raise AssertionError(f"hwsim: {memsim!r} {min_buf!r} {info[-1]!r}")
+    for line in (info[0], info[-1], memsim, min_buf):
+        log(f"hwsim: {line}")
+    return {"peak_cells": 2867200, "info_lines": len(info)}
+
+
 def main() -> int:
     import torch
 
@@ -1104,7 +1278,7 @@ def main() -> int:
     log(f"model: yolov8n K=8 full-quant 640, random weights seed 0, "
         f"port calibration ({time.perf_counter() - t0:.1f} s)")
     kres = check_kernels(model, device_plan(model, dev), batch=8)
-    launches, plans, reqs = serve(model, dev)
+    launches, plans, reqs, dense, per_engine = serve(model, dev)
     golden_heads(model, plans["fused"], reqs[0][:1])
     check_against_cpu(model, dev)
     check_partial_quant(dev)
@@ -1113,6 +1287,14 @@ def main() -> int:
         time_pipeline(model, dev, card, engine)
     log(json.dumps(artifacts_phase(model, dev, card)))
     log(json.dumps(eval_phase(model, dev, card)))
+    t0 = time.perf_counter()
+    sparse = sparse_phase(model, dev, card, reqs, dense, per_engine)
+    bench_lines = bench_phase(dev)
+    prof = profiling_phase(model, dev)
+    hw = hwsim_phase()
+    log(json.dumps({"phase": "sparse_bench_profiling_hwsim", **sparse,
+                    "bench": bench_lines, **prof, **hw,
+                    "seconds": time.perf_counter() - t0, "card": card}))
     kres["sigma_probe"]["launch_floor_ms"] = launch_floor_ms()
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s on {card}")

@@ -22,7 +22,7 @@ from alpha_yolo_quant_torch.config import QuantConfig
 from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
 from alpha_yolo_quant_torch.models.params import init_raw_params
 from test_torch_checkpoint_io import synthetic_checkpoint
-from test_torch_model_build import assert_same
+from test_torch_model_build import assert_same, one_torch_thread  # noqa: F401
 
 SIZE = "64"
 
@@ -139,3 +139,88 @@ def test_cuda_default_refuses_a_machine_without_a_card(art, monkeypatch):
             tcli.main(argv + ["--image-size", SIZE])
     assert tcli.build_parser().parse_args(
         ["serve", "--max-a", "m", "--input-list", "-"]).engine == "fused"
+
+
+def _run(cli, argv, capsys):
+    assert cli.main(argv) in (0, None)
+    return capsys.readouterr().out
+
+
+def test_memsim_files_and_lines_equal_jax(art, capsys, monkeypatch):
+    """memory.txt and final_memory.txt byte-equal to the JAX CLI's, the
+    same printed lines (output dir aside), --min-buffer at 64 and 640;
+    --heatmaps hands the simulation to plot_memory_heatmaps (drawn in
+    tests/test_torch_hwsim.py, 5 of them: all of a plan take minutes)."""
+    outs = {}
+    for name, cli in (("t", tcli), ("j", jcli)):
+        out = str(art["tmp"] / f"memsim_{name}")
+        text = _run(cli, ["memsim", "--image-size", SIZE, "--out", out],
+                    capsys)
+        outs[name] = (out, text.replace(out, "OUT"))
+    assert outs["t"][1] == outs["j"][1]
+    assert outs["t"][1].startswith("peak occupancy: 28672 cells")
+    for f in ("memory.txt", "final_memory.txt"):
+        paths = [os.path.join(outs[n][0], "results", f) for n in "tj"]
+        with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+            assert a.read() == b.read(), f
+    for size in (SIZE, "640"):
+        argv = ["memsim", "--min-buffer", "--image-size", size]
+        got = _run(tcli, argv, capsys)
+        assert got == _run(jcli, argv, capsys) and "min buffer: " in got
+    from alpha_yolo_quant_torch.eval import plots
+
+    drawn = []
+    monkeypatch.setattr(plots, "plot_memory_heatmaps",
+                        lambda sim, out: drawn.append(sim.trace) or 3)
+    text = _run(tcli, ["memsim", "--image-size", SIZE, "--heatmaps",
+                       "--out", outs["t"][0]], capsys)
+    assert text.startswith(f"3 per-layer heatmaps -> {outs['t'][0]}/memory/")
+    assert len(drawn) == 1 and len(drawn[0]) > 60
+
+
+def test_info_lines_equal_jax(art, capsys):
+    for extra in ([], ["--max-a", _max_a(art["j"])]):
+        argv = ["info", "--image-size", SIZE] + extra
+        got = _run(tcli, argv, capsys)
+        assert got == _run(jcli, argv, capsys)
+        assert ("calibration (tap: a):" in got) == bool(extra)
+        assert "SRAM plan: peak 28672 cells" in got
+
+
+def test_demo_prints_the_serve_rows(art, capsys, tmp_path,
+                                    one_torch_thread):
+    """demo on one PNG prints, in the JAX demo's format, the rows that the
+    port's serve writes for it (test_serve_jsonl_equals_jax holds those
+    JSONL bytes equal to the JAX CLI's); --plot writes a PNG."""
+    from PIL import Image
+
+    png = tmp_path / "demo.png"
+    Image.fromarray(np.random.default_rng(13).integers(
+        0, 256, (72, 90, 3), dtype=np.uint8)).save(png)
+    listing = tmp_path / "list.txt"
+    listing.write_text(f"{png}\n")
+    model = ["--image-size", SIZE, "--weights", _npz(art["j"]), "--max-a",
+             _max_a(art["j"]), "--full-quant", "--device", "cpu"]
+    jsonl = tmp_path / "demo.jsonl"
+    assert tcli.main(["serve", "--input-list", str(listing), "--output",
+                      str(jsonl)] + model) == 0
+    capsys.readouterr()
+    rows = json.loads(jsonl.read_text())["detections"]
+    plot = tmp_path / "demo_plot.png"
+    got = _run(tcli, ["demo", "--image", str(png), "--plot", str(plot)]
+               + model, capsys).splitlines()
+    from alpha_yolo_quant_torch.eval.records import COCO_NAMES
+
+    want = [f"{len(rows)} detections"] + [
+        f"  {COCO_NAMES[int(r[5])]:<15} {r[4]:.3f} "
+        f"[{r[0]:.1f}, {r[1]:.1f}, {r[2]:.1f}, {r[3]:.1f}]"
+        for r in rows[:20]]
+    assert got == want + [f"plot -> {plot}"] and len(rows) > 0
+    assert plot.stat().st_size > 0
+
+
+def test_demo_refuses_a_machine_without_a_card(art, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tcli.main(["demo", "--image-size", SIZE, "--max-a",
+                   _max_a(art["j"]), "--image", "x.png"])

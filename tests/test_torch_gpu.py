@@ -536,3 +536,56 @@ def test_evaluate_prefetch_on_card_equals_sync(cuda, tmp_path, monkeypatch):
     assert len(got.det_rows) > 0
     assert (got.det_rows, got.ann_rows, got.map50_95) == \
         (want.det_rows, want.ann_rows, want.map50_95)
+
+
+@pytest.mark.parametrize("engine", ["fused", "pallas", "packed"])
+def test_sparse_select_on_card_equals_dense(cuda, engine):
+    """build_int_pipeline(sparse_select=True) on the card: the dense
+    pipeline's detections bit for bit and its launches, with the top-1000
+    default and with a cut to the top 32 of the 84 anchors."""
+    import dataclasses
+
+    from alpha_yolo_quant_torch.runtime.interpreter import eval_nms_params
+
+    model = _card_model()
+    x = torch.as_tensor(np.random.default_rng(3).uniform(
+        0, 1, (3, 3, 64, 64)).astype(np.float32), device=cuda)
+    nms = eval_nms_params(model, 0.001)
+    for params in (None, dataclasses.replace(nms, pre_topk=32)):
+        runs = []
+        for sparse in (False, True):
+            fn = build_int_pipeline(model, cuda, engine=engine,
+                                    nms_params=params,
+                                    sparse_select=sparse)[0]
+            torch.cuda.synchronize()
+            fused_ops.reset_counts()
+            out = fn(x)
+            torch.cuda.synchronize()
+            runs.append((out, dict(fused_ops.LAUNCHES)))
+        (want, n_want), c_want = runs[0]
+        (got, n_got), c_got = runs[1]
+        assert torch.equal(got, want) and torch.equal(n_got, n_want)
+        assert c_got == c_want and sum(c_got.values()) > 0
+
+
+def test_bench_fn_and_device_trace_on_card(cuda, tmp_path):
+    """bench_fn times a conv kernel with CUDA events; device_trace's
+    chrome trace holds that kernel's device events."""
+    import json
+
+    from alpha_yolo_quant_torch.utils.profiling import bench_fn, device_trace
+
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.integers(-127, 128, (8, 40, 40, 64)),
+                        dtype=torch.int8, device=cuda)
+    c = fused_ops.conv_entry(rng.integers(-127, 128, (64, 64, 3, 3)),
+                             rng.integers(-99, 99, 64), 1, 1, False, cuda)
+    ms = bench_fn(fused_ops.conv3x3, x, c, iters=5, device=cuda)
+    assert 0 < ms < 1000
+    with device_trace(str(tmp_path)) as path:
+        fused_ops.conv3x3(x, c)
+        torch.cuda.synchronize()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "conv_wgmma" in e.get("name", "")
+               for e in events)

@@ -60,6 +60,23 @@ def assert_same(a, b, path="model"):
         assert type(a) is type(b) and a == b, f"{path}: {a!r} != {b!r}"
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op torch thread for the test. The 64-px workloads gain
+    nothing from more, and the suite runs several workers on one CPU:
+    torch's default of a thread per core in each worker oversubscribes
+    the cores many times over (a test of 4 s alone took 100 s inside the
+    6-worker run)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def build_pair(model="yolov8n", k=8, full_quant=True, size=64, seed=0,
                calib_seed=0, tamper=None):
     """(port model, JAX model) built by each package's own modules from

@@ -203,11 +203,13 @@ _DIGEST = textwrap.dedent("""
 def test_port_runs_without_jax():
     """Building the model (graph, params, calibration, quantize), running
     the 64-px pipeline and golden oracle, exporting the artifact tree and
-    loading it back through the port, and importing the CLI, eval, export
-    and prefetch modules never loads jax or any module of the JAX package
-    (a deployment may have neither), and the model built that way equals
-    the one the JAX package builds."""
+    loading it back through the port, running the CLI's memsim and info,
+    and importing the CLI, eval, export, prefetch, hwsim, profiling and
+    bench modules never loads jax or any module of the JAX package (a
+    deployment may have neither), and the model built that way equals the
+    one the JAX package builds."""
     code = _DIGEST + textwrap.dedent("""
+        import os
         import sys
         import tempfile
         import alpha_yolo_quant_torch
@@ -219,6 +221,10 @@ def test_port_runs_without_jax():
         import alpha_yolo_quant_torch.eval.plots
         import alpha_yolo_quant_torch.utils.debug_dump
         import alpha_yolo_quant_torch.utils.run_log
+        import alpha_yolo_quant_torch.bench
+        import alpha_yolo_quant_torch.hwsim.refmem
+        import alpha_yolo_quant_torch.hwsim.sram
+        import alpha_yolo_quant_torch.utils.profiling
         from alpha_yolo_quant_torch.export.artifacts import export_all
         from alpha_yolo_quant_torch.quantize.loadq import (
             model_from_packed_state_dict)
@@ -253,6 +259,13 @@ def test_port_runs_without_jax():
             export_all(m, env, p, tmp, warn=lambda *a: None)
             m2 = model_from_packed_state_dict(tmp, cfg)
         assert model_digest(m2) == model_digest(m)
+        with tempfile.TemporaryDirectory() as tmp:
+            assert alpha_yolo_quant_torch.cli.main(
+                ["memsim", "--image-size", "64", "--out", tmp]) in (0, None)
+            assert os.path.isfile(os.path.join(tmp, "results",
+                                               "final_memory.txt"))
+        assert alpha_yolo_quant_torch.cli.main(
+            ["info", "--image-size", "64"]) in (0, None)
         print("MAX_A", repr(sorted(max_a.items())))
         print("DIGEST", model_digest(m))
         bad = sorted(k for k in sys.modules if k == "jax" or
