@@ -19,7 +19,18 @@ and output lines):
 calibrate, eval-*, serve, demo, accept and bench run on ``--device``
 (default ``cuda``): without a card they stop unless ``--device cpu`` is
 given. memsim and info are host-only. ``--engine`` is one of the port's
-engines (fused, pallas, packed). Image files are read with PIL and plots
+engines (fused, pallas, packed).
+
+``--dp N`` (calibrate, eval-float, eval-int8, serve, accept, bench) runs
+the command on N ranks, each on its own rows of every batch: over NCCL
+with rank r on ``cuda:r`` (``--device cuda``), or over gloo on the CPU
+(``--device cpu``). Without a launcher (no WORLD_SIZE in the environment)
+the command spawns the ranks itself; under torchrun each process is one
+rank. Rank 0 reads every input, sends each batch to the others and
+writes every file and line. The integer pipeline's outputs (eval-int8's
+tables, serve's JSONL) equal those of ``--dp 0`` byte for byte; float
+results (calibrate, eval-float) can differ in the last bits, as float
+convs may round differently at the smaller per-rank batch. Image files are read with PIL and plots
 are drawn with matplotlib; where PIL is absent, drive
 serving.BatchCoalescer or eval.harness.evaluate with in-memory arrays
 instead (demo and memsim --heatmaps need PIL or matplotlib).
@@ -55,6 +66,113 @@ def _device(args):
         raise SystemExit(f"{args.cmd}: no CUDA device; pass --device cpu "
                          "to run on the CPU")
     return dev
+
+
+def _check_dp(args, batch: int) -> None:
+    if args.dp and batch % args.dp:
+        raise SystemExit(f"--dp {args.dp} must divide the batch size "
+                         f"{batch}")
+
+
+def _on_ranks(args, batch: int):
+    """Start or join the ranks of ``--dp N`` (N must divide ``batch``).
+    Returns (True, rank 0's result) in a process that spawned N ranks to
+    run the command, else (False, None): without --dp, or in a process
+    that is (now) a rank. ``--device cuda`` runs NCCL ranks, rank r on
+    cuda:r, and stops when fewer than N cards are visible; ``--device
+    cpu`` runs gloo ranks."""
+    _check_dp(args, batch)
+    if not args.dp:
+        return False, None
+    import torch
+    import torch.distributed as dist
+
+    from alpha_yolo_quant_torch.parallel.mesh import (
+        init_distributed, run_ranks,
+    )
+
+    cuda = torch.device(args.device).type == "cuda"
+    if not dist.is_initialized():
+        if cuda:
+            _device(args)
+            n = torch.cuda.device_count()
+            if args.dp > n:
+                raise SystemExit(f"--dp {args.dp}: only {n} devices visible")
+        backend = "nccl" if cuda else "gloo"
+        if "WORLD_SIZE" not in os.environ:
+            state = {k: v for k, v in vars(args).items() if k != "fn"}
+            return True, run_ranks(_cli_rank, (args.fn.__name__, state),
+                                   args.dp, backend, deadline_s=float("inf"))
+        dev = init_distributed(backend)
+        if cuda:
+            args.device = str(dev)
+    if dist.get_world_size() != args.dp:
+        raise SystemExit(f"--dp {args.dp}: the launcher started "
+                         f"{dist.get_world_size()} ranks")
+    return False, None
+
+
+def _cli_rank(rank, fn_name, state):
+    """One spawned rank of a --dp command: rerun the command here."""
+    import torch
+
+    args = argparse.Namespace(**state, fn=globals()[fn_name])
+    if torch.device(args.device).type == "cuda":
+        args.device = f"cuda:{rank}"
+    if rank:
+        # rank 0 prints every line; the others would repeat it
+        sys.stdout = sys.stderr = open(os.devnull, "w")
+    return args.fn(args)
+
+
+def _controller() -> bool:
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def _dp_step(fn, args, device, n_calls=None):
+    """fn (images -> outputs, per-image rows) sharded over the --dp ranks.
+    On rank 0 returns (step, stop): step(images) sends the batch to every
+    rank, zero-padded to a multiple of N rows, runs fn on this rank's
+    rows, gathers every rank's rows and returns the batch's; after
+    ``n_calls`` calls, or at stop(), the other ranks are released. On the
+    other ranks it runs fn on each batch rank 0 sends until released, and
+    returns None."""
+    import torch
+
+    from alpha_yolo_quant_torch.parallel.mesh import (
+        BatchFeed, data_parallel_step, gather_batch, make_mesh,
+    )
+    from alpha_yolo_quant_torch.serving import split_by_sizes
+
+    mesh = make_mesh(args.dp)
+    feed = BatchFeed(mesh, device)
+    local = data_parallel_step(fn, mesh)
+    if not feed.controller:
+        for x in feed:
+            gather_batch(mesh, local(x))
+        return None
+    calls, stopped = [0], [False]
+
+    def stop():
+        if not stopped[0]:
+            stopped[0] = True
+            feed.stop()
+
+    def step(images):
+        x = torch.as_tensor(images)
+        b = x.shape[0]
+        pad = -b % args.dp
+        if pad:
+            x = torch.cat((x, x.new_zeros((pad,) + x.shape[1:])), 0)
+        out = gather_batch(mesh, local(feed.send(x)))
+        calls[0] += 1
+        if calls[0] == n_calls:
+            stop()
+        return split_by_sizes(out, [b])[0] if pad else out
+
+    return step, stop
 
 
 def _graph_params(args, cfg):
@@ -118,11 +236,16 @@ def cmd_calibrate(args):
     from alpha_yolo_quant_torch.export.artifacts import make_dirs
     from alpha_yolo_quant_torch.utils.io import write_max_a, write_max_a_all
 
+    spawned, ret = _on_ranks(args, args.batch_size)
+    if spawned:
+        return ret
     cfg = _cfg(args)
     device = _device(args)
     graph, params = _graph_params(args, cfg)
     records = collect_stats(graph, params, _calib_batches(args, cfg),
-                            device)
+                            device, dp=args.dp or None)
+    if args.dp and not _controller():
+        return 0
     samples = None
     if cfg.calib_mode.lower() == "min_mae":
         # the stem conv's koef is fixed, not searched (the reference dumps
@@ -175,6 +298,9 @@ def cmd_quantize(args):
 
 
 def _eval_common(args, step, comment, stage, csv_tag):
+    """evaluate(step) over --coco-images and the reports; step runs on the
+    --dp ranks' rows when --dp is given (only rank 0 reports: the others
+    return 0)."""
     from alpha_yolo_quant_torch.data.coco import CocoValDataset
     from alpha_yolo_quant_torch.eval.harness import evaluate
     from alpha_yolo_quant_torch.eval.plots import plot_run_results
@@ -183,10 +309,21 @@ def _eval_common(args, step, comment, stage, csv_tag):
     from alpha_yolo_quant_torch.utils.run_log import write_run_result
 
     cfg = _cfg(args)
+    if args.dp and not _controller():
+        _dp_step(step, args, args.device)    # serves rank 0's batches
+        return 0
     ds = CocoValDataset(args.coco_images, args.coco_ann, limit=args.limit)
-    res = evaluate(step, ds, args.batch_size, cfg.image_size,
-                   progress=True, prefetch=args.prefetch,
-                   device=args.device)
+    stop = None
+    if args.dp:
+        step, stop = _dp_step(step, args, args.device,
+                              n_calls=-(-len(ds) // args.batch_size))
+    try:
+        res = evaluate(step, ds, args.batch_size, cfg.image_size,
+                       progress=True, prefetch=args.prefetch,
+                       device=args.device)
+    finally:
+        if stop is not None:
+            stop()
     print(f"mAP50-95: {res.map50_95:.4f} over {res.n_images} images "
           f"({res.images_per_s:.1f} img/s device, "
           f"{res.images_per_s_wall:.1f} img/s wall)")
@@ -213,6 +350,9 @@ def cmd_eval_float(args):
         NmsParams, non_max_suppression,
     )
 
+    spawned, ret = _on_ranks(args, args.batch_size)
+    if spawned:
+        return ret
     cfg = _cfg(args)
     device = _device(args)
     graph, params = _graph_params(args, cfg)
@@ -237,6 +377,9 @@ def cmd_eval_int8(args):
         build_int_pipeline, eval_nms_params,
     )
 
+    spawned, ret = _on_ranks(args, args.batch_size)
+    if spawned:
+        return ret
     cfg = _cfg(args)
     device = _device(args)
     graph, params = _graph_params(args, cfg)
@@ -262,17 +405,15 @@ def cmd_serve(args):
     exported tree (the stage-8 load: weight pickles, bias_scales,
     max_a.txt), bit-identical to the model built from the float weights
     (quantize/loadq.py)."""
-    import concurrent.futures as cf
-    import json
-
-    from alpha_yolo_quant_torch.data.coco import load_image_square
     from alpha_yolo_quant_torch.quantize.transform import (
         build_quantized_model,
     )
     from alpha_yolo_quant_torch.utils.io import read_max_a
     from alpha_yolo_quant_torch.runtime.interpreter import build_int_pipeline
-    from alpha_yolo_quant_torch.serving import BatchCoalescer
 
+    spawned, ret = _on_ranks(args, args.max_batch)
+    if spawned:
+        return ret
     cfg = _cfg(args)
     device = _device(args)
     if args.from_artifacts:
@@ -292,6 +433,28 @@ def cmd_serve(args):
         dfl_w = params["dfl"]["w"]
     fn, _ = build_int_pipeline(model, device, dfl_w_float=dfl_w,
                                engine=args.engine)
+    stop = None
+    if args.dp:
+        # the coalescer lives on rank 0; each flush runs on every rank
+        if not _controller():
+            _dp_step(fn, args, device)
+            return 0
+        fn, stop = _dp_step(fn, args, device)
+    try:
+        return _serve_list(args, cfg, fn)
+    finally:
+        if stop is not None:
+            stop()
+
+
+def _serve_list(args, cfg, fn):
+    """serve's loop over --input-list through a BatchCoalescer of fn."""
+    import concurrent.futures as cf
+    import json
+
+    from alpha_yolo_quant_torch.data.coco import load_image_square
+    from alpha_yolo_quant_torch.serving import BatchCoalescer
+
     src = sys.stdin if args.input_list == "-" else open(args.input_list)
     with src:
         paths = [ln.strip() for ln in src if ln.strip()]
@@ -454,6 +617,12 @@ def cmd_accept(args):
     q_NMS) -> optional K sweep -> report table. Exit nonzero when a
     gate's mAP50-95 drop vs the fp32 baseline exceeds the budget."""
 
+    if args.dp and "WORLD_SIZE" in os.environ:
+        raise SystemExit("accept: run it in one process; its subcommands "
+                         "start the ranks of --dp themselves")
+    # fail before the prepare stage does its checkpoint-load work
+    _check_dp(args, args.batch_size)
+
     def run(argv):
         # route through the real subparsers so every default/flag has
         # one source of truth
@@ -466,7 +635,8 @@ def cmd_accept(args):
               "--batch-size", str(args.batch_size)]
              + (["--limit", str(args.limit)]
                 if args.limit is not None else []))
-    devc = ["--device", args.device]
+    devc = ["--device", args.device] + (["--dp", str(args.dp)]
+                                        if args.dp else [])
     evalc = datac + devc + ["--conf-thres", str(args.conf_thres)] \
         + (["--prefetch"] if args.prefetch else [])
 
@@ -558,6 +728,10 @@ def build_parser():
     sp.add_argument("--coco-ann")
     sp.add_argument("--limit", type=int, default=None)
     sp.add_argument("--batch-size", type=int, default=8)
+    sp.add_argument("--dp", type=int, default=0,
+                    help="shard calibration batches over N ranks "
+                         "(per-image maxima gather back, so every --mode "
+                         "reduction is unchanged)")
     sp.set_defaults(fn=cmd_calibrate)
 
     sp = sub.add_parser("quantize", help="integer transform + full export")
@@ -578,6 +752,9 @@ def build_parser():
         sp.add_argument("--conf-thres", type=float, default=0.001)
         sp.add_argument("--prefetch", action="store_true",
                         help="async host decode + device staging")
+        sp.add_argument("--dp", type=int, default=0,
+                        help="shard each batch over N ranks (data "
+                             "parallelism; N must divide --batch-size)")
         if name == "eval-int8":
             sp.add_argument("--max-a", required=True)
             sp.add_argument("--full-quant", action="store_true")
@@ -629,6 +806,9 @@ def build_parser():
     sp.add_argument("--max-wait-ms", type=float, default=5.0)
     sp.add_argument("--decoders", type=int, default=8,
                     help="host image-decode threads feeding the batcher")
+    sp.add_argument("--dp", type=int, default=0,
+                    help="shard each coalesced step over N ranks (must "
+                         "divide --max-batch)")
     sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser("accept",
@@ -655,12 +835,16 @@ def build_parser():
                          "own artifact dir + gates)")
     sp.add_argument("--drop-budget", type=float, default=0.5,
                     help="max allowed mAP50-95 drop vs fp32 (BASELINE)")
+    sp.add_argument("--dp", type=int, default=0,
+                    help="shard every gate's batches over N ranks "
+                         "(forwarded to calibrate, eval-float and "
+                         "eval-int8)")
     sp.set_defaults(fn=cmd_accept)
 
     from alpha_yolo_quant_torch import bench
 
-    sp = sub.add_parser("bench", help="whole-pipeline throughput on one "
-                                      "card")
+    sp = sub.add_parser("bench", help="whole-pipeline throughput (one "
+                                      "card, or --dp)")
     bench.add_arguments(sp)
     sp.set_defaults(fn=cmd_bench)
 

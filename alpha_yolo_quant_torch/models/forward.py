@@ -18,7 +18,8 @@ from alpha_yolo_quant_torch.ops.nn import (
 
 def forward_float(graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
                   x: torch.Tensor, collect_taps: bool = False,
-                  capture: Optional[Dict[str, torch.Tensor]] = None
+                  capture: Optional[Dict[str, torch.Tensor]] = None,
+                  conv=conv2d_f32
                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Run the fp32 model on NCHW images.
 
@@ -26,7 +27,9 @@ def forward_float(graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
     collect_taps the per-image max-abs of every conv's pre-activation
     output by tap name (plus 'start' for the input). ``capture``: a dict
     whose keys are tap names; each is set to that conv's whole
-    pre-activation output.
+    pre-activation output. ``conv(x, w, b, stride, padding)`` runs each
+    conv (the tensor-parallel forward of parallel/mesh.py passes one that
+    computes this rank's output channels and gathers the rest).
 
     On CUDA this turns TF32 off for convolutions and matmuls
     (torch.backends.cudnn.allow_tf32 and
@@ -48,8 +51,8 @@ def forward_float(graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
     for node in graph.nodes:
         if isinstance(node, ConvNode):
             p = params[node.key]
-            out = conv2d_f32(env[node.src], p["w"], p["b"], node.stride,
-                             node.padding)
+            out = conv(env[node.src], p["w"], p["b"], node.stride,
+                       node.padding)
             record(node.tap, out)
             if capture is not None and node.tap in capture:
                 capture[node.tap] = out

@@ -402,11 +402,9 @@ def build_yolov8_graph(cfg: QuantConfig) -> Graph:
                  outputs=outputs)
 
 
-def node_costs(graph: Graph, image_size: int) -> List[int]:
-    """Conv MACs of one image per node, 0 for the other nodes, from a shape
-    walk of the IR (the JAX package's parallel/pipeline._node_costs, node
-    for node): the numerator of the bench's mfu and the weight a pipeline
-    stage balancer splits."""
+def _shape_walk(graph: Graph, image_size: int):
+    """(edge -> (C, H, W) of one image, conv MACs per node) from a walk of
+    the IR."""
     shapes = {graph.input_edge: (3, image_size, image_size)}
     costs = []
     for node in graph.nodes:
@@ -434,4 +432,18 @@ def node_costs(graph: Graph, image_size: int) -> List[int]:
         elif isinstance(node, UpsampleNode):
             c, h, w = shapes[node.src]
             shapes[node.dst] = (c, h * node.factor, w * node.factor)
-    return costs
+    return shapes, costs
+
+
+def node_costs(graph: Graph, image_size: int) -> List[int]:
+    """Conv MACs of one image per node, 0 for the other nodes, from a shape
+    walk of the IR (the JAX package's parallel/pipeline._node_costs, node
+    for node): the numerator of the bench's mfu and the weight a pipeline
+    stage balancer splits."""
+    return _shape_walk(graph, image_size)[1]
+
+
+def edge_shapes(graph: Graph, image_size: int) -> Dict[str, Tuple[int, int,
+                                                                    int]]:
+    """(C, H, W) of every edge for one image, from the same walk."""
+    return _shape_walk(graph, image_size)[0]

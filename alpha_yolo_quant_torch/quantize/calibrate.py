@@ -25,18 +25,38 @@ from alpha_yolo_quant_torch.models.params import params_to_torch
 
 @torch.no_grad()
 def collect_stats(graph: Graph, params: Dict, batches: Iterable[np.ndarray],
-                  device="cuda") -> Dict[str, List[float]]:
+                  device="cuda", dp: Optional[int] = None
+                  ) -> Dict[str, List[float]]:
     """Run calibration batches on ``device`` (the card unless the caller
     names another); returns tap -> list of per-image maxima, taps in
     sorted order like the JAX function's (its tap dict comes back from the
     device with sorted keys), so both packages write the same max_a files.
-    ``params``: the float params dict, numpy or torch."""
+    ``params``: the float params dict, numpy or torch.
+
+    ``dp``: shard each batch over the first N ranks of the default process
+    group (parallel.mesh). The group's first rank reads ``batches`` and
+    sends each batch to the others (ignored there); each rank runs its
+    rows, and the per-image maxima come back gathered in global row
+    order, so every reduction mode sees the single-rank list. Every rank
+    returns the records."""
     tp = params_to_torch(params, device)
+    if dp:
+        from alpha_yolo_quant_torch.parallel.mesh import (
+            BatchFeed, gather_batch, make_mesh, shard_batch,
+        )
+
+        mesh = make_mesh(dp)
+        batches = BatchFeed(mesh, device).share(batches)
     records: Dict[str, List[float]] = {}
     for batch in batches:
-        x = torch.as_tensor(np.asarray(batch), dtype=torch.float32,
-                            device=device)
+        if dp:
+            batch = shard_batch(mesh, batch)
+        elif not isinstance(batch, torch.Tensor):
+            batch = np.asarray(batch)
+        x = torch.as_tensor(batch, dtype=torch.float32, device=device)
         _, taps = forward_float(graph, tp, x, collect_taps=True)
+        if dp:
+            taps = gather_batch(mesh, taps)
         for name in sorted(taps):
             records.setdefault(name, []).extend(
                 taps[name].cpu().numpy().tolist())

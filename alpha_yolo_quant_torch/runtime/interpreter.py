@@ -192,10 +192,90 @@ def _pallas_conv(node, c: Dict, x: torch.Tensor, sig: DeviceLut,
     return fused_ops.postconv_plain(hi, lo, c["b"], axis=3)
 
 
+def run_node(model: QuantizedModel, plan: Dict, idx: int,
+             env: Dict[str, torch.Tensor], engine: str = "fused",
+             plain: bool = False,
+             extra: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Run graph node ``idx`` on the NHWC tensors of ``env`` and store its
+    outputs there: the body of int_forward's node loop (the packed
+    engine's slab nodes aside), also run by the height-banded forward of
+    parallel/mesh.py on widened bands. ``extra``: where keep_env's
+    intermediates go (None: not collected)."""
+    node = model.graph.nodes[idx]
+    qmax = model.cfg.qmax
+    if isinstance(node, ConvNode):
+        c = plan["convs"][node.name]
+        x = env[node.src]
+        if engine == "pallas":
+            env[node.dst] = _pallas_conv(node, c, x, plan["sig_lut"], qmax)
+            return
+        conv = (fused_ops.conv_plain if plain
+                else fused_ops.conv1x1 if node.kernel == 1
+                else fused_ops.conv3x3)
+        env[node.dst] = conv(x, c, plan["sig_lut"], qmax)
+        if extra is not None and node.silu:
+            acc = fused_ops.conv_acc_plain(x, c)
+            extra[f"{node.name}:sigdom"] = _nchw(
+                requantize(acc, c["r1"], c["s1"], qmax))
+    elif isinstance(node, SplitNode):
+        t = env[node.src]
+        h = t.shape[3] // 2
+        env[node.dst1] = t[..., :h].contiguous()
+        env[node.dst2] = t[..., h:].contiguous()
+    elif isinstance(node, ResidualAddNode):
+        r, s = plan["requants"][(idx, node.src)]
+        req = requantize_small(env[node.src], r, s, qmax)
+        if extra is not None:
+            extra[f"{node.label}:rescale"] = _nchw(req)
+        out = req + env[node.base].to(torch.int32)
+        bound = model.clip_after_residual.get(idx)
+        if bound is not None:
+            out = torch.clamp(out, -bound, bound)
+        env[node.dst] = out.to(_store_dtype(model, node.dst))
+    elif isinstance(node, ConcatNode):
+        dt = _store_dtype(model, node.dst)
+        parts = []
+        for e in node.srcs:
+            t = env[e]
+            if (idx, e) in plan["requants"]:
+                r, s = plan["requants"][(idx, e)]
+                t = requantize_small(t, r, s, qmax)
+                if extra is not None:
+                    extra[f"{node.label}:{e}:requant"] = _nchw(t)
+            parts.append(t.to(dt))
+        env[node.dst] = torch.cat(parts, dim=3)
+    elif isinstance(node, MaxPoolNode):
+        env[node.dst] = maxpool2d(env[node.src], node.kernel,
+                                  node.stride, node.padding, nhwc=True)
+    elif isinstance(node, UpsampleNode):
+        env[node.dst] = upsample_nearest(env[node.src], node.factor,
+                                         nhwc=True)
+    else:  # pragma: no cover
+        raise TypeError(type(node))
+
+
+def requant_heads(model: QuantizedModel, plan: Dict,
+                  outs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The full-quant head's first requant of the six raw head edges: box
+    -> int8, cls -> int16 (int_forward's head_requant)."""
+    if model.head is None:
+        raise ValueError("head_requant needs a full-quant model")
+    hp = plan["head"]
+    outs = dict(outs)
+    for level in ("p3", "p4", "p5"):
+        for kind, qmx, dt in (("box", 127, torch.int8),
+                              ("cls", 2 ** 15 - 1, torch.int16)):
+            role = f"{level}_{kind}"
+            outs[role] = requantize(outs[role], hp[f"{kind}_r"][level],
+                                    hp[f"{kind}_s"][level], qmx).to(dt)
+    return outs
+
+
 def int_forward(model: QuantizedModel, plan: Dict, x_q: torch.Tensor,
                 keep_env: bool = False, head_requant: bool = False,
-                plain: bool = False,
-                engine: str = "fused") -> Dict[str, torch.Tensor]:
+                plain: bool = False, engine: str = "fused",
+                node_range=None, env_in=None,
+                out_edges=None) -> Dict[str, torch.Tensor]:
     """Run the integer graph on NCHW int8 input. Returns the six head
     edges, NCHW: raw int32 accumulators, or with head_requant the
     full-quant head's first requant (box -> int8, cls -> int16).
@@ -210,16 +290,39 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q: torch.Tensor,
     keep_env adds ``'__env__'``: every edge (NCHW) plus the golden
     oracle's intermediates ``<conv>:sigdom``, ``<label>:rescale`` and
     ``<label>:<edge>:requant``. The edges come from the same kernels as
-    without it; the sigdom values are recomputed by the plain conv."""
+    without it; the sigdom values are recomputed by the plain conv.
+
+    Segmented execution (the pipeline-parallel seam, parallel/pipeline.py):
+    node_range=(lo, hi) with env_in (the segment's live input edges, NCHW;
+    x_q is ignored) and out_edges (the edge names to return, NCHW). The
+    same node loop runs over the slice, so a chain of segments equals the
+    whole-graph call bit for bit by construction; head_requant and the
+    outputs' collection are skipped (the caller owns the seams). Segments
+    run on the fused engine, with or without plain: the packed engine's
+    slab plan indexes nodes absolutely."""
+    segmented = node_range is not None
+    if segmented or env_in is not None or out_edges is not None:
+        # hard errors, not asserts: python -O strips asserts
+        if not (segmented and env_in is not None and out_edges is not None):
+            raise ValueError(
+                "segmented execution needs node_range + env_in + out_edges")
+        if engine != "fused" or keep_env:
+            raise ValueError(
+                "segments run the plain NCHW engines (no keep_env/nhwc/"
+                "pallas)")
     _check_engine(engine, keep_env, plain)
-    qmax = model.cfg.qmax
-    sig = plan["sig_lut"]
-    env: Dict[str, torch.Tensor] = {
-        model.graph.input_edge: x_q.permute(0, 2, 3, 1).contiguous()}
-    extra: Dict[str, torch.Tensor] = {}
-    slabs = (SlabExec(slab_plan(model, plan), model, plan, env, qmax)
+    if segmented:
+        env: Dict[str, torch.Tensor] = {
+            e: t.permute(0, 2, 3, 1).contiguous() for e, t in env_in.items()}
+        lo, hi = node_range
+    else:
+        env = {model.graph.input_edge: x_q.permute(0, 2, 3, 1).contiguous()}
+        lo, hi = 0, len(model.graph.nodes)
+    extra: Optional[Dict[str, torch.Tensor]] = {} if keep_env else None
+    slabs = (SlabExec(slab_plan(model, plan), model, plan, env,
+                      model.cfg.qmax)
              if engine == "packed" else None)
-    for idx, node in enumerate(model.graph.nodes):
+    for idx in range(lo, hi):
         if slabs is not None:
             pre = slabs.sp.pre_ops.get(idx)
             if pre:
@@ -227,70 +330,16 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q: torch.Tensor,
             if idx in slabs.sp.nodes:
                 slabs.run(slabs.sp.node_ops.get(idx, ()))
                 continue
-        if isinstance(node, ConvNode):
-            c = plan["convs"][node.name]
-            x = env[node.src]
-            if engine == "pallas":
-                env[node.dst] = _pallas_conv(node, c, x, sig, qmax)
-                continue
-            conv = (fused_ops.conv_plain if plain
-                    else fused_ops.conv1x1 if node.kernel == 1
-                    else fused_ops.conv3x3)
-            env[node.dst] = conv(x, c, sig, qmax)
-            if keep_env and node.silu:
-                acc = fused_ops.conv_acc_plain(x, c)
-                extra[f"{node.name}:sigdom"] = _nchw(
-                    requantize(acc, c["r1"], c["s1"], qmax))
-        elif isinstance(node, SplitNode):
-            t = env[node.src]
-            h = t.shape[3] // 2
-            env[node.dst1] = t[..., :h].contiguous()
-            env[node.dst2] = t[..., h:].contiguous()
-        elif isinstance(node, ResidualAddNode):
-            r, s = plan["requants"][(idx, node.src)]
-            req = requantize_small(env[node.src], r, s, qmax)
-            if keep_env:
-                extra[f"{node.label}:rescale"] = _nchw(req)
-            out = req + env[node.base].to(torch.int32)
-            bound = model.clip_after_residual.get(idx)
-            if bound is not None:
-                out = torch.clamp(out, -bound, bound)
-            env[node.dst] = out.to(_store_dtype(model, node.dst))
-        elif isinstance(node, ConcatNode):
-            dt = _store_dtype(model, node.dst)
-            parts = []
-            for e in node.srcs:
-                t = env[e]
-                if (idx, e) in plan["requants"]:
-                    r, s = plan["requants"][(idx, e)]
-                    t = requantize_small(t, r, s, qmax)
-                    if keep_env:
-                        extra[f"{node.label}:{e}:requant"] = _nchw(t)
-                parts.append(t.to(dt))
-            env[node.dst] = torch.cat(parts, dim=3)
-        elif isinstance(node, MaxPoolNode):
-            env[node.dst] = maxpool2d(env[node.src], node.kernel,
-                                      node.stride, node.padding, nhwc=True)
-        elif isinstance(node, UpsampleNode):
-            env[node.dst] = upsample_nearest(env[node.src], node.factor,
-                                             nhwc=True)
-        else:  # pragma: no cover
-            raise TypeError(type(node))
+        run_node(model, plan, idx, env, engine, plain, extra)
 
+    if segmented:
+        return {e: _nchw(env[e]).contiguous() for e in out_edges}
     if slabs is not None:
         slabs.run(slabs.sp.pre_ops.get(len(model.graph.nodes), ()))
     outs = {role: _nchw(env[e]).contiguous()
             for role, e in model.graph.outputs.items()}
     if head_requant:
-        if model.head is None:
-            raise ValueError("head_requant needs a full-quant model")
-        hp = plan["head"]
-        for level in ("p3", "p4", "p5"):
-            for kind, qmx, dt in (("box", 127, torch.int8),
-                                  ("cls", 2 ** 15 - 1, torch.int16)):
-                role = f"{level}_{kind}"
-                outs[role] = requantize(outs[role], hp[f"{kind}_r"][level],
-                                        hp[f"{kind}_s"][level], qmx).to(dt)
+        outs = requant_heads(model, plan, outs)
     if keep_env:
         outs["__env__"] = {**{k: _nchw(v) for k, v in env.items()}, **extra,
                            **{role: _nchw(env[e])
@@ -491,7 +540,7 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
                        options: Optional[EngineOptions] = None,
                        coalesce_requests: Optional[int] = None,
                        plain: bool = False, engine: str = "fused",
-                       sparse_select: bool = False):
+                       sparse_select: bool = False, forward=None):
     """Return ``(fn, plan)``: fn maps images (NCHW float32 in [0, 1] or
     uint8, numpy or torch) to detections ``(det (B,300,6), n_det (B,))``
     on ``device``.
@@ -513,7 +562,11 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
     (decode_select_sparse), where the pipeline is eligible: full quant with
     NMS, quantized NMS params with a pre_topk cut and the deferred
     sigmoid, and N < 2^14 anchors (JAX's rule); elsewhere the dense decode
-    runs. Bit-identical to the dense decode and select either way."""
+    runs. Bit-identical to the dense decode and select either way.
+    forward: run forward(plan, x_q) in place of int_forward; it returns the
+    six head edges as int_forward(head_requant=<full quant>) does. The
+    sharded forwards of parallel/mesh.py come in here, so that they share
+    the rest of the pipeline."""
     from alpha_yolo_quant_torch.postprocess.nms import (
         NmsParams, non_max_suppression, q_nms_params,
     )
@@ -581,8 +634,9 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
         if padded:
             x_q = torch.cat((x_q, x_q.new_zeros((pad_batch_to - b,)
                                                 + x_q.shape[1:])), 0)
-        outs = int_forward(model, plan, x_q, head_requant=full, plain=plain,
-                           engine=engine)
+        outs = (forward(plan, x_q) if forward is not None else
+                int_forward(model, plan, x_q, head_requant=full, plain=plain,
+                            engine=engine))
         if padded:
             outs = {name: t[:b] for name, t in outs.items()}
         return _post(outs)

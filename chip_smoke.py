@@ -69,6 +69,14 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      kernels' device events; (d) the CLI's info, memsim and memsim
      --min-buffer at 640 (host only): peak 2,867,200 cells, the reference
      buffer, and final_memory.txt written; prints the phase's seconds;
+ 11. parallel/{mesh, pipeline} (parallel_phase): (a) NCCL over the visible
+     cards (at most 4; one here): the dp step serves phase 4's requests
+     equal to phase 4, the all-reduced calibration taps equal one rank's,
+     and the CLI's calibrate --dp writes phase 6's max_a.txt byte for
+     byte; (b) four gloo ranks sharing cuda:0: dp=2, pp S=2 and S=4 (conv
+     launches 63 per microbatch over the stages), sp=2, sp=4 and dp x sp
+     equal the unsharded fused run bit for bit, tp=2 float preds within
+     rtol 1e-4; prints the backends, world sizes and seconds;
 then print the kernels line (every kernel with its launches on its path,
 error, times and bound; sigma_probe also with the launch floor, an empty
 kernel's device time) and, last, the device line.
@@ -742,7 +750,8 @@ def deployed_path(device, card: str, image_size: int = 640,
     uint8 requests of 1-16 images from several threads. Fails unless the
     fused engine launched 63 convs per flush and every request's
     detections equal a direct call of the same pipeline. Returns the
-    coalescer's snapshot."""
+    coalescer's snapshot and the bytes of the fused weights and max_a.txt
+    that prepare and calibrate wrote."""
     import tempfile
     import threading
 
@@ -782,6 +791,9 @@ def deployed_path(device, card: str, image_size: int = 640,
         t2 = time.perf_counter()
         params = load_params(npz)
         max_a = read_max_a(os.path.join(out, "results", "max_a.txt"))
+        with open(npz, "rb") as f_npz, open(os.path.join(
+                out, "results", "max_a.txt"), "rb") as f_max_a:
+            files = {"npz": f_npz.read(), "max_a": f_max_a.read()}
     model = build_quantized_model(graph, params, max_a, cfg)
     fn, _ = build_int_pipeline(model, device)
     log(f"deployed: prepare ({n_tensors}-tensor synthetic checkpoint, "
@@ -844,7 +856,7 @@ def deployed_path(device, card: str, image_size: int = 640,
         f"latency_ms p50={stats['latency_ms_p50']:.2f} "
         f"p95={stats['latency_ms_p95']:.2f} (max_batch 128, max_wait 5 ms) "
         f"on {card}")
-    return stats
+    return stats, files
 
 
 def time_pipeline(model, device, card: str, engine: str, batch: int = 128,
@@ -1247,6 +1259,279 @@ def hwsim_phase() -> dict:
     return {"peak_cells": 2867200, "info_lines": len(info)}
 
 
+def _host(tree):
+    """Numpy copies of every tensor of a tree (dicts, lists, tuples)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_host(v) for v in tree)
+    return tree.cpu().numpy() if isinstance(tree, torch.Tensor) else tree
+
+
+def _conv_launches() -> int:
+    from alpha_yolo_quant_torch.runtime import fused_ops
+
+    return fused_ops.LAUNCHES["conv1x1"] + fused_ops.LAUNCHES["conv3x3"]
+
+
+def _nccl_rank(rank, model, params, reqs, tap_images):
+    """Phase 11a on one NCCL rank per card: phase 4's requests through
+    data_parallel_step, with every rank's conv kernel launches counted,
+    and the calibration taps of sharded_forward_fn."""
+    import torch
+    import torch.distributed as dist
+
+    from alpha_yolo_quant_torch.models.params import params_to_torch
+    from alpha_yolo_quant_torch.parallel.mesh import (
+        data_parallel_step, gather_batch, make_mesh, sharded_forward_fn,
+    )
+    from alpha_yolo_quant_torch.runtime import fused_ops
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh()
+    step = data_parallel_step(build_int_pipeline(model, dev)[0], mesh)
+    torch.cuda.synchronize(dev)
+    fused_ops.reset_counts()
+    served = [gather_batch(mesh, step(r)) for r in reqs]
+    torch.cuda.synchronize(dev)
+    launches = [None] * dist.get_world_size()
+    dist.all_gather_object(launches, _conv_launches())
+    taps = sharded_forward_fn(model.graph, mesh, collect_taps=True)(
+        params_to_torch(params, dev), tap_images)["taps"]
+    return _host({"served": served, "taps": taps, "launches": launches})
+
+
+def _gloo_card_rank(rank, model, params, x, x_tp):
+    """Phase 11b on four gloo ranks sharing cuda:0: dp=2, pp S=2 and S=4
+    (one image per microbatch), sp=2, sp=4, dp x sp 2x2 and tp=2, each
+    with its seconds on rank 0 and, but for tp's float convs, every rank's
+    conv kernel launches in that run."""
+    import torch
+    import torch.distributed as dist
+
+    from alpha_yolo_quant_torch.models.params import params_to_torch
+    from alpha_yolo_quant_torch.parallel.mesh import (
+        data_parallel_step, dp_sp_parallel_fn, gather_batch, in_mesh,
+        make_mesh, make_mesh_2d, shard_params_tp, spatial_parallel_fn,
+        tensor_parallel_fn,
+    )
+    from alpha_yolo_quant_torch.parallel.pipeline import (
+        build_pipeline_spec, pipeline_forward,
+    )
+    from alpha_yolo_quant_torch.runtime import fused_ops
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline, device_plan,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    meshes = {"dp2": make_mesh(2), "pp2": make_mesh(2, axis="pp"),
+              "pp4": make_mesh(4, axis="pp"), "sp2": make_mesh(2, axis="sp"),
+              "sp4": make_mesh(4, axis="sp"),
+              "dp2xsp2": make_mesh_2d(2, 2, axes=("dp", "sp")),
+              "tp2": make_mesh(2, axis="tp")}
+    plan = device_plan(model, dev)
+    res, secs, counts = {}, {}, {}
+
+    def run(name, build, drive):
+        mesh = meshes[name]
+        if in_mesh(mesh):
+            f = build(mesh)
+            torch.cuda.synchronize(dev)
+            fused_ops.reset_counts()
+            t0 = time.perf_counter()
+            res[name] = drive(mesh, f)
+            torch.cuda.synchronize(dev)
+            secs[name] = time.perf_counter() - t0
+            counts[name] = _conv_launches()
+
+    run("dp2", lambda m: data_parallel_step(build_int_pipeline(model, dev)[0],
+                                            m),
+        lambda m, f: gather_batch(m, f(x)))
+    for s in (2, 4):
+        run(f"pp{s}", lambda m, s=s: pipeline_forward(
+            model, plan, build_pipeline_spec(model, s, 1, x.shape[0]), m),
+            lambda m, f: f(x))
+    for s in (2, 4):
+        run(f"sp{s}", lambda m: spatial_parallel_fn(model, m, device=dev),
+            lambda m, f: f(x))
+    run("dp2xsp2", lambda m: dp_sp_parallel_fn(model, m, device=dev),
+        lambda m, f: gather_batch(m, f(x)))
+    run("tp2", lambda m: tensor_parallel_fn(model.graph, m),
+        lambda m, f: f(shard_params_tp(m, params_to_torch(params, dev)),
+                       x_tp))
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, counts)
+    launches = {k: [c[k] for c in per_rank if k in c]
+                for k in meshes if k != "tp2"}
+    return _host({"res": res, "seconds": secs, "launches": launches})
+
+
+def parallel_phase(model, device, card: str, reqs, dense, calib_files):
+    """Phase 11: parallel/{mesh, pipeline} on the card, from the parent's
+    built kernels and the phase-2 model passed to every rank.
+
+    (a) NCCL, one rank per visible card (at most 4, a power of two):
+    data_parallel_step serves phase 4's three requests equal to phase 4's
+    detections, each rank launching its conv kernels 63 times per request;
+    sharded_forward_fn's MAX all-reduced taps of phase 4's 8 f32 images
+    equal a single-rank forward within rtol 1e-6 (JAX's tolerance; the
+    error is printed); the CLI's calibrate --dp <world> on phase 6's
+    weights writes phase 6's max_a.txt: byte for byte at world size 1, and
+    every tap within rtol 1e-6 at a larger world.
+    (b) four gloo ranks sharing cuda:0 (NCCL refuses two ranks on one
+    card), phase 4's four uint8 images: dp=2 detections, pp S=2 and S=4
+    head edges (microbatch 1) and sp=2, sp=4 and dp x sp 2x2 preds equal
+    the unsharded fused run bit for bit; every dp, sp and dp x sp rank
+    launches its conv kernels 63 times (one forward), the pp ranks' sum to
+    63 per microbatch; tp=2 float preds of two f32 images within rtol 1e-4
+    of the unsharded float forward. Returns the phase's line."""
+    import tempfile
+
+    import torch
+
+    from alpha_yolo_quant_torch import cli
+    from alpha_yolo_quant_torch.models.forward import forward_float
+    from alpha_yolo_quant_torch.models.head import decode_float
+    from alpha_yolo_quant_torch.models.params import (
+        init_params, params_to_torch,
+    )
+    from alpha_yolo_quant_torch.parallel.mesh import run_ranks
+    from alpha_yolo_quant_torch.runtime.interpreter import (
+        build_int_pipeline, device_plan, int_forward, quantize_input,
+    )
+    from alpha_yolo_quant_torch.utils.io import read_max_a
+
+    t_phase = time.perf_counter()
+    graph = model.graph
+    s = model.cfg.image_size
+    n_cards = torch.cuda.device_count()
+    world = 4 if n_cards >= 4 else 2 if n_cards >= 2 else 1
+    n_conv = len(graph.convs())
+    params = init_params(graph, seed=0)
+    tparams = params_to_torch(params, device)
+    reqs_np = [r.cpu().numpy() for r in reqs]
+
+    t0 = time.perf_counter()
+    got = run_ranks(_nccl_rank, (model, params, reqs_np, reqs_np[1]), world,
+                    "nccl", deadline_s=600)
+    a_ranks_s = time.perf_counter() - t0
+    for i, ((det, n), (det_w, n_w)) in enumerate(zip(got["served"], dense)):
+        if not (np.array_equal(det, det_w.cpu().numpy())
+                and np.array_equal(n, n_w.cpu().numpy())):
+            raise AssertionError(f"parallel (a): dp request {i} differs "
+                                 "from phase 4")
+    a_launches = got["launches"]
+    if a_launches != [n_conv * len(reqs_np)] * world:
+        raise AssertionError(f"parallel (a): dp launches {a_launches}, "
+                             f"expected {n_conv} per request on each rank")
+    with torch.no_grad():
+        _, taps = forward_float(graph, tparams, torch.as_tensor(
+            reqs_np[1], device=device), collect_taps=True)
+    taps_err = max(abs(float(got["taps"][k]) - float(torch.amax(v)))
+                   / max(abs(float(torch.amax(v))), 1e-30)
+                   for k, v in taps.items())
+    if sorted(got["taps"]) != sorted(taps) or taps_err > 1e-6:
+        raise AssertionError(f"parallel (a): taps differ by {taps_err} "
+                             "relative")
+    log(f"parallel (a) backend nccl, world {world}: data_parallel_step "
+        f"serves phase 4's 3 requests equal to phase 4 (conv launches per "
+        f"rank {a_launches}); "
+        f"{len(taps)} all-reduced taps of 8 images, max relative error "
+        f"{taps_err:.3g} against one rank")
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "weights_batchnf.npz")
+        with open(npz, "wb") as f:
+            f.write(calib_files["npz"])
+        out = os.path.join(tmp, "8_nano")
+        t0 = time.perf_counter()
+        if cli.main(["calibrate", "--weights", npz, "--out", out,
+                     "--device", "cuda", "--dp", str(world),
+                     "--image-size", str(s)]) != 0:
+            raise AssertionError("calibrate --dp failed")
+        cal_s = time.perf_counter() - t0
+        path = os.path.join(out, "results", "max_a.txt")
+        with open(path, "rb") as f:
+            max_a = f.read()
+        taps_got = read_max_a(path)
+        ref_path = os.path.join(tmp, "max_a_phase6.txt")
+        with open(ref_path, "wb") as f:
+            f.write(calib_files["max_a"])
+        taps_want = read_max_a(ref_path)
+    if world == 1 and max_a != calib_files["max_a"]:
+        raise AssertionError("parallel (a): calibrate --dp 1 wrote another "
+                             "max_a.txt than phase 6")
+    if list(taps_got) != list(taps_want):
+        raise AssertionError("parallel (a): calibrate --dp wrote other taps "
+                             "than phase 6")
+    for tap, v in taps_got.items():
+        np.testing.assert_allclose(v, taps_want[tap], rtol=1e-6,
+                                   err_msg=f"parallel (a): calibrate --dp "
+                                           f"{world} tap {tap}")
+    log(f"parallel (a) backend nccl: cli calibrate --dp {world} "
+        f"({cal_s:.1f} s) wrote phase 6's max_a.txt, "
+        + ("byte for byte" if world == 1 else
+           f"all {len(taps_got)} taps within rtol 1e-6"))
+
+    x, x_tp = reqs_np[0], reqs_np[1][:2]
+    t0 = time.perf_counter()
+    got = run_ranks(_gloo_card_rank, (model, params, x, x_tp), 4, "gloo",
+                    deadline_s=600)
+    b_ranks_s = time.perf_counter() - t0
+    res, secs, b_launches = got["res"], got["seconds"], got["launches"]
+    xd = torch.as_tensor(x, device=device)
+    plan = device_plan(model, device)
+    heads = {r: t.cpu().numpy() for r, t in int_forward(
+        model, plan, quantize_input(xd, model.cfg.k)).items()}
+    det, n = build_int_pipeline(model, device)[0](xd)
+    preds = build_int_pipeline(model, device, with_nms=False)[0](xd)
+    preds = preds.cpu().numpy()
+    if not (np.array_equal(res["dp2"][0], det.cpu().numpy())
+            and np.array_equal(res["dp2"][1], n.cpu().numpy())):
+        raise AssertionError("parallel (b): dp=2 detections differ")
+    for k in ("pp2", "pp4"):
+        for role, want in res[k].items():
+            if not np.array_equal(want, heads[role]):
+                raise AssertionError(f"parallel (b): {k} {role} differs")
+        if sum(b_launches[k]) != n_conv * x.shape[0] or min(
+                b_launches[k]) < 1:
+            raise AssertionError(f"parallel (b): {k} launches "
+                                 f"{b_launches[k]}, expected "
+                                 f"{n_conv} per microbatch")
+    for k in ("sp2", "sp4", "dp2xsp2"):
+        if not np.array_equal(res[k], preds):
+            raise AssertionError(f"parallel (b): {k} preds differ")
+    for k, n_ranks in (("dp2", 2), ("sp2", 2), ("sp4", 4), ("dp2xsp2", 4)):
+        if b_launches[k] != [n_conv] * n_ranks:
+            raise AssertionError(f"parallel (b): {k} launches "
+                                 f"{b_launches[k]}, expected {n_conv} on "
+                                 "each rank")
+    with torch.no_grad():
+        outs, _ = forward_float(graph, tparams, torch.as_tensor(
+            x_tp, device=device))
+        fp = decode_float(outs, tparams["dfl"]["w"]).cpu().numpy()
+    tp_err = float(np.max(np.abs(res["tp2"] - fp)
+                          / np.maximum(np.abs(fp), 1e-6)))
+    np.testing.assert_allclose(res["tp2"], fp, rtol=1e-4, atol=1e-6)
+    log(f"parallel (b) backend gloo, 4 ranks sharing cuda:0: dp=2, pp "
+        f"S=2/S=4, sp=2, sp=4 and dp x sp 2x2 equal the unsharded fused run "
+        f"bit for bit (conv launches per rank {b_launches}); tp=2 float "
+        f"preds max relative error {tp_err:.3g}")
+    return {"phase": "parallel", "backends": {"a": "nccl", "b": "gloo"},
+            "world_sizes": {"a": world, "b": 4},
+            "launches": dict(b_launches, a_dp=a_launches),
+            "taps_max_rel_err": taps_err, "tp_max_rel_err": tp_err,
+            "rank_seconds": {k: round(v, 4) for k, v in secs.items()},
+            "a_seconds": a_ranks_s, "a_calibrate_seconds": cal_s,
+            "b_seconds": b_ranks_s,
+            "seconds": time.perf_counter() - t_phase, "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -1282,7 +1567,7 @@ def main() -> int:
     golden_heads(model, plans["fused"], reqs[0][:1])
     check_against_cpu(model, dev)
     check_partial_quant(dev)
-    deployed_path(dev, card)
+    _, calib_files = deployed_path(dev, card)
     for engine in ("fused", "pallas", "packed"):
         time_pipeline(model, dev, card, engine)
     log(json.dumps(artifacts_phase(model, dev, card)))
@@ -1295,6 +1580,8 @@ def main() -> int:
     log(json.dumps({"phase": "sparse_bench_profiling_hwsim", **sparse,
                     "bench": bench_lines, **prof, **hw,
                     "seconds": time.perf_counter() - t0, "card": card}))
+    log(json.dumps(parallel_phase(model, dev, card, reqs, dense,
+                                  calib_files)))
     kres["sigma_probe"]["launch_floor_ms"] = launch_floor_ms()
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s on {card}")

@@ -589,3 +589,47 @@ def test_bench_fn_and_device_trace_on_card(cuda, tmp_path):
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" and "conv_wgmma" in e.get("name", "")
                for e in events)
+
+
+def test_pp_and_sp_over_gloo_ranks_sharing_the_card(cuda):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one card): pp
+    S=2 gives the unsharded head edges and sp=2 the unsharded
+    with_nms=False preds, bit for bit; the kernels built here first, so
+    the ranks load them."""
+    import _torch_ranks
+    from alpha_yolo_quant_torch.parallel.mesh import run_ranks
+    from alpha_yolo_quant_torch.runtime import _build
+
+    _build.build()
+    model = _card_model()
+    x = np.random.default_rng(5).uniform(0, 1, (4, 3, 64, 64)).astype(
+        np.float32)
+    got = run_ranks(_torch_ranks.card_checks, (model, x, 2), 2, "gloo",
+                    deadline_s=300)
+    plan = device_plan(model, cuda)
+    heads = int_forward(model, plan, quantize_input(
+        torch.as_tensor(x, device=cuda), 8))
+    for role, t in heads.items():
+        np.testing.assert_array_equal(got["pp2"][role], t.cpu().numpy())
+    preds = build_int_pipeline(model, cuda, with_nms=False)[0](
+        torch.as_tensor(x, device=cuda))
+    np.testing.assert_array_equal(got["sp"], preds.cpu().numpy())
+
+
+def test_dp_world_one_over_nccl(cuda):
+    """One NCCL rank on the card serves the batch through the dp step
+    and gather equal to the direct pipeline."""
+    import _torch_ranks
+    from alpha_yolo_quant_torch.parallel.mesh import run_ranks
+    from alpha_yolo_quant_torch.runtime import _build
+
+    _build.build()
+    model = _card_model()
+    x = np.random.default_rng(6).uniform(0, 1, (2, 3, 64, 64)).astype(
+        np.float32)
+    det, n = run_ranks(_torch_ranks.nccl_dp_checks, (model, x), 1, "nccl",
+                       deadline_s=300)
+    det_d, n_d = build_int_pipeline(model, cuda)[0](
+        torch.as_tensor(x, device=cuda))
+    np.testing.assert_array_equal(det, det_d.cpu().numpy())
+    np.testing.assert_array_equal(n, n_d.cpu().numpy())

@@ -204,10 +204,10 @@ def test_port_runs_without_jax():
     """Building the model (graph, params, calibration, quantize), running
     the 64-px pipeline and golden oracle, exporting the artifact tree and
     loading it back through the port, running the CLI's memsim and info,
-    and importing the CLI, eval, export, prefetch, hwsim, profiling and
-    bench modules never loads jax or any module of the JAX package (a
-    deployment may have neither), and the model built that way equals the
-    one the JAX package builds."""
+    and importing the CLI, eval, export, prefetch, hwsim, profiling,
+    bench and parallel modules never loads jax or any module of the JAX
+    package (a deployment may have neither), and the model built that way
+    equals the one the JAX package builds."""
     code = _DIGEST + textwrap.dedent("""
         import os
         import sys
@@ -225,6 +225,9 @@ def test_port_runs_without_jax():
         import alpha_yolo_quant_torch.hwsim.refmem
         import alpha_yolo_quant_torch.hwsim.sram
         import alpha_yolo_quant_torch.utils.profiling
+        import alpha_yolo_quant_torch.parallel.dryrun
+        import alpha_yolo_quant_torch.parallel.mesh
+        import alpha_yolo_quant_torch.parallel.pipeline
         from alpha_yolo_quant_torch.export.artifacts import export_all
         from alpha_yolo_quant_torch.quantize.loadq import (
             model_from_packed_state_dict)
