@@ -1,0 +1,6 @@
+"""The card's allocator peak (torch.cuda.max_memory_allocated) over the
+program's set-up and the window, in GiB."""
+
+
+def read(run):
+    return run.window.peak_bytes / 2 ** 30 if run.window.peak_bytes else None
