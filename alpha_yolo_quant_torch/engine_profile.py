@@ -5,10 +5,11 @@
 Needs one CUDA card (and nvcc for the kernels). Builds the model that
 chip_smoke.py serves (yolov8n K=8 full quant 640, random weights from seed
 0, the port's calibration on two seeded images) and, for each engine
-(fused, pallas, packed): CUDA events around quantize, int_forward and the
-decode + q_NMS tail of one batch, then one torch.profiler pass over a
-whole batch with the device time summed by kernel, the port's kernels by
-name and the rest as torch ops. Prints one JSON line per engine, then one
+(fused, pallas, packed): one torch.profiler pass over a whole batch with
+the device time summed by kernel, the port's kernels by name and the rest
+as torch ops, and the torch ops' device time by stage, from the program's
+spans (ayq.quantize, ayq.forward, ayq.decode, ayq.nms;
+utils/profiling.SPANS). Prints one JSON line per engine, then one
 line (`conv_layers`) with each conv of the fused forward timed alone on
 the activations that forward feeds it: its device time, the time with the
 raw int32 epilogue instead of the SiLU chain, and its bound; then one
@@ -40,6 +41,8 @@ SPIN_CYCLES = 40_000_000   # about 20 ms of the card at its boost clock
 PORT_KERNELS = {"conv_wgmma": "conv1x1/conv3x3", "postconv_kernel":
                 "postconv", "packed_conv_kernel": "packed_conv",
                 "sigma_probe_kernel": "sigma_probe"}
+# the pipeline's stage spans (utils/profiling.SPANS) profile_engine reads
+STAGES = ("ayq.quantize", "ayq.forward", "ayq.decode", "ayq.nms")
 
 
 def build_model(image_size: int = 640, device="cuda",
@@ -200,16 +203,6 @@ def conv_layers(model, x: torch.Tensor, reps: int = 5) -> list:
     return rows
 
 
-def _events_ms(fn):
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    out = fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return out, t0.elapsed_time(t1)
-
-
 def _device_ms(evt) -> float:
     for attr in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, attr):
@@ -217,27 +210,40 @@ def _device_ms(evt) -> float:
     return 0.0
 
 
+def stage_torch_ops_ms(events) -> dict:
+    """Device ms of the torch ops under each stage span (STAGES), from a
+    profile's ``key_averages()``: the host-side span events, whose device
+    time sums the kernels their child ops launched. The port's own kernels
+    launch through ctypes, outside any torch op, and key_averages links
+    them to no span: they are ``device_ms_by_kernel``'s (benchmark/spans.py
+    puts them down to their span by the trace's correlation ids)."""
+    host = torch.autograd.DeviceType.CPU
+    out = dict.fromkeys(STAGES, 0.0)
+    for evt in events:
+        if evt.key in out and evt.device_type == host:
+            out[evt.key] += _device_ms(evt)
+    return out
+
+
 def profile_engine(model, engine: str, x: torch.Tensor) -> dict:
-    fn, plan = build_int_pipeline(model, "cuda", engine=engine)
-    full = model.cfg.full_quant
+    fn, _ = build_int_pipeline(model, "cuda", engine=engine)
     fn(x)                                   # warm-up: builds, caches
     torch.cuda.synchronize()
-    _, wall = _events_ms(lambda: fn(x))
-    xq, quant_ms = _events_ms(lambda: quantize_input(x, model.cfg.k))
     fused_ops.reset_counts()
-    _, fwd_ms = _events_ms(lambda: int_forward(
-        model, plan, xq, head_requant=full, engine=engine))
-    launches = {k: v for k, v in fused_ops.LAUNCHES.items() if v}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn(x)
         torch.cuda.synchronize()
+    launches = {k: v for k, v in fused_ops.LAUNCHES.items() if v}
+    events = prof.key_averages()
     by_kernel: dict = defaultdict(float)
     top = []
-    for evt in prof.key_averages():
+    for evt in events:
         ms = _device_ms(evt)
-        if ms <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+        # the spans' device-side copies (gpu_user_annotation) are no work
+        if (ms <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.key.partition(".")[0] == "ayq"):
             continue
         label = next((v for k, v in PORT_KERNELS.items() if k in evt.key),
                      "torch ops")
@@ -246,9 +252,7 @@ def profile_engine(model, engine: str, x: torch.Tensor) -> dict:
     top.sort(reverse=True)
     busy = sum(by_kernel.values())
     return {"engine": engine, "batch": int(x.shape[0]),
-            "wall_ms": wall, "quantize_ms": quant_ms,
-            "int_forward_ms": fwd_ms,
-            "decode_nms_ms": wall - quant_ms - fwd_ms,
+            "stage_torch_ops_ms": stage_torch_ops_ms(events),
             "device_busy_ms": busy,
             "device_ms_by_kernel": dict(by_kernel),
             "forward_launches": launches,

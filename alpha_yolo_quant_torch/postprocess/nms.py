@@ -16,6 +16,8 @@ import dataclasses
 
 import torch
 
+from alpha_yolo_quant_torch.utils.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class NmsParams:
@@ -113,20 +115,24 @@ def greedy_keep_sorted(boxes, valid, iou_thres, max_det, plus_one,
     """Sequential-greedy keep mask over candidates already in descending
     score order. boxes (..., M, 4) xyxy (class-offset), valid (..., M).
     Returns (..., M) bool with at most max_det True (the first kept
-    ones in score order)."""
-    x1, y1, x2, y2 = boxes.unbind(-1)
-    areas = (x2 - x1 + plus_one) * (y2 - y1 + plus_one)
-    m = boxes.shape[-2]
-    sup = _suppress_matrix(boxes, areas, iou_thres, plus_one, quantized)
-    earlier = torch.ones(m, m, dtype=torch.bool,
-                         device=boxes.device).triu(1)        # j < i
-    s = (sup & earlier).to(torch.float32)
+    ones in score order). Each sweep runs in its own ``ayq.nms.sweep``
+    span: their number is the sweep counter."""
+    with span("ayq.nms.suppress"):
+        x1, y1, x2, y2 = boxes.unbind(-1)
+        areas = (x2 - x1 + plus_one) * (y2 - y1 + plus_one)
+        m = boxes.shape[-2]
+        sup = _suppress_matrix(boxes, areas, iou_thres, plus_one, quantized)
+        earlier = torch.ones(m, m, dtype=torch.bool,
+                             device=boxes.device).triu(1)        # j < i
+        s = (sup & earlier).to(torch.float32)
     keep = valid
     while True:   # at most M + 1 sweeps; dense clusters need more
-        killed = torch.matmul(keep.to(torch.float32).unsqueeze(-2),
-                              s).squeeze(-2) > 0.5
-        nxt = valid & ~killed
-        if torch.equal(nxt, keep):
+        with span("ayq.nms.sweep"):
+            killed = torch.matmul(keep.to(torch.float32).unsqueeze(-2),
+                                  s).squeeze(-2) > 0.5
+            nxt = valid & ~killed
+            done = torch.equal(nxt, keep)
+        if done:
             break
         keep = nxt
     within = torch.cumsum(keep.to(torch.int32), dim=-1) <= max_det
@@ -193,19 +199,33 @@ def non_max_suppression(preds, params: NmsParams = NmsParams(),
     (the serving path's deferred 16-bit sigmoid).
 
     Returns (det (B, max_det, 6) float32 rows [x1,y1,x2,y2,conf,cls],
-    descaled for q_NMS, zero past n_det; n_det (B,) int32)."""
-    p = params
+    descaled for q_NMS, zero past n_det; n_det (B,) int32). Runs in the
+    span ``ayq.nms``, its steps in ``ayq.nms.select``, ``.suppress``,
+    ``.sweep`` and ``.compact``."""
+    with span("ayq.nms"):
+        return _nms(preds, params, score_map, preselected)
+
+
+def _nms(preds, p: NmsParams, score_map, preselected: bool):
     if preselected:
         boxes, conf, cls, valid = preds
     else:
-        boxes, conf, cls, valid = _select_candidates(
-            preds, p.max_nms, p.conf_thres, p.pre_topk,
-            int_scores=p.quantized)
+        with span("ayq.nms.select"):
+            boxes, conf, cls, valid = _select_candidates(
+                preds, p.max_nms, p.conf_thres, p.pre_topk,
+                int_scores=p.quantized)
     if p.trunc_boxes:
         boxes = torch.trunc(boxes)
     offset = cls * (0.0 if p.agnostic else p.max_wh)
     keep = greedy_keep_sorted(boxes + offset[..., None], valid, p.iou_thres,
                               p.max_det, p.plus_one, p.quantized)
+    with span("ayq.nms.compact"):
+        return _compact(keep, boxes, conf, cls, p, score_map)
+
+
+def _compact(keep, boxes, conf, cls, p: NmsParams, score_map):
+    """The kept rows to the front in score order, descaled, as det rows;
+    and the kept count."""
     b, m = conf.shape
     # kept rows to the front in score order (stable sort of the mask)
     order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices

@@ -15,7 +15,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -45,9 +44,6 @@ ARGTYPES = {
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# seconds the last build() took, and per source its ptxas report and the
-# path of its library
-BUILD_INFO: Dict[str, object] = {}
 
 
 def cuda_tool(name: str = "nvcc") -> str:
@@ -69,17 +65,21 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def targets() -> Dict[str, Path]:
+    """Per source, the path of its library; its nvcc and ptxas report is
+    the same path with the suffix ``.log``."""
+    tag = _digest()
+    return {name: BUILD_DIR / f"libayq_{name}_{tag}.so" for name in SOURCES}
+
+
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile every missing library in parallel and load all of them."""
     if _LIBS:
         return _LIBS
-    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = _digest()
-    targets = {name: BUILD_DIR / f"libayq_{name}_{tag}.so"
-               for name in SOURCES}
+    libs = targets()
     procs: List = []
-    for name, so in targets.items():
+    for name, so in libs.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -90,21 +90,18 @@ def build() -> Dict[str, ctypes.CDLL]:
     # wait for every nvcc before acting on any failure, so none outlives us
     logs = {name: proc.communicate()[0] for name, _, _, proc in procs}
     for name, so, tmp, proc in procs:
-        BUILD_INFO[f"ptxas_{name}"] = logs[name]
-        (BUILD_DIR / f"{name}_{tag}.log").write_text(logs[name])
+        so.with_suffix(".log").write_text(logs[name])
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{logs[name]}")
         # atomic: a concurrent builder never loads half a file
         os.replace(tmp, so)
-    for name, so in targets.items():
+    for name, so in libs.items():
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in ARGTYPES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
-        BUILD_INFO[f"lib_{name}"] = str(so)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
     return _LIBS
 
 

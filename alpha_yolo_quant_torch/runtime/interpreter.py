@@ -47,6 +47,7 @@ from alpha_yolo_quant_torch.runtime import fused_ops
 from alpha_yolo_quant_torch.runtime.slabforward import (
     SlabExec, build_slab_plan,
 )
+from alpha_yolo_quant_torch.utils.profiling import span
 
 ENGINES = ("fused", "pallas", "packed")
 
@@ -200,8 +201,28 @@ def run_node(model: QuantizedModel, plan: Dict, idx: int,
     outputs there: the body of int_forward's node loop (the packed
     engine's slab nodes aside), also run by the height-banded forward of
     parallel/mesh.py on widened bands. ``extra``: where keep_env's
-    intermediates go (None: not collected)."""
+    intermediates go (None: not collected). The node runs inside its
+    span (utils/profiling.SPANS): ``ayq.forward.conv.<name>`` for a conv
+    layer, ``ayq.forward.<kind>`` for the others."""
     node = model.graph.nodes[idx]
+    if isinstance(node, ConvNode):
+        name, layer = "ayq.forward.conv.", node.name
+    else:
+        name, layer = _GLUE_SPANS[type(node)], ""
+    with span(name, layer):
+        _run_node(model, plan, idx, node, env, engine, plain, extra)
+
+
+_GLUE_SPANS = {SplitNode: "ayq.forward.split",
+               ResidualAddNode: "ayq.forward.add",
+               ConcatNode: "ayq.forward.concat",
+               MaxPoolNode: "ayq.forward.maxpool",
+               UpsampleNode: "ayq.forward.upsample"}
+
+
+def _run_node(model: QuantizedModel, plan: Dict, idx: int, node,
+              env: Dict[str, torch.Tensor], engine: str, plain: bool,
+              extra: Optional[Dict[str, torch.Tensor]]) -> None:
     qmax = model.cfg.qmax
     if isinstance(node, ConvNode):
         c = plan["convs"][node.name]
@@ -326,20 +347,24 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q: torch.Tensor,
         if slabs is not None:
             pre = slabs.sp.pre_ops.get(idx)
             if pre:
-                slabs.run(pre)
+                with span("ayq.forward.slab"):
+                    slabs.run(pre)
             if idx in slabs.sp.nodes:
-                slabs.run(slabs.sp.node_ops.get(idx, ()))
+                with span("ayq.forward.slab"):
+                    slabs.run(slabs.sp.node_ops.get(idx, ()))
                 continue
         run_node(model, plan, idx, env, engine, plain, extra)
 
     if segmented:
         return {e: _nchw(env[e]).contiguous() for e in out_edges}
     if slabs is not None:
-        slabs.run(slabs.sp.pre_ops.get(len(model.graph.nodes), ()))
+        with span("ayq.forward.slab"):
+            slabs.run(slabs.sp.pre_ops.get(len(model.graph.nodes), ()))
     outs = {role: _nchw(env[e]).contiguous()
             for role, e in model.graph.outputs.items()}
     if head_requant:
-        outs = requant_heads(model, plan, outs)
+        with span("ayq.forward.head_requant"):
+            outs = requant_heads(model, plan, outs)
     if keep_env:
         outs["__env__"] = {**{k: _nchw(v) for k, v in env.items()}, **extra,
                            **{role: _nchw(env[e])
@@ -608,22 +633,26 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
                       and score_map is not None and nms_params.quantized
                       and nms_params.pre_topk and n_anchors < (1 << 14))
 
-    def _post(outs):
+    def _decode(outs):
         if use_sparse:
-            cand = decode_select_sparse(
+            return decode_select_sparse(
                 model, plan, outs,
                 pre_topk=min(nms_params.pre_topk, nms_params.max_nms),
                 conf_thres=nms_params.conf_thres)
-            return non_max_suppression(cand, nms_params,
-                                       score_map=score_map, preselected=True)
         if full:
-            preds = decode_full_quant(model, plan, outs,
-                                      sigmoid_cls=score_map is None,
-                                      reduce_cls=(score_map is not None
-                                                  and with_nms),
-                                      pre_requantized=True)
-        else:
-            preds = decode_float(dequantize_heads(model, outs), dfl_w)
+            return decode_full_quant(model, plan, outs,
+                                     sigmoid_cls=score_map is None,
+                                     reduce_cls=(score_map is not None
+                                                 and with_nms),
+                                     pre_requantized=True)
+        return decode_float(dequantize_heads(model, outs), dfl_w)
+
+    def _post(outs):
+        with span("ayq.decode"):
+            preds = _decode(outs)
+        if use_sparse:
+            return non_max_suppression(preds, nms_params,
+                                       score_map=score_map, preselected=True)
         if with_nms:
             return non_max_suppression(preds, nms_params,
                                        score_map=score_map)
@@ -631,19 +660,22 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
 
     def _quantized_run(x_q, b):
         padded = pad_batch_to is not None and b < pad_batch_to
-        if padded:
-            x_q = torch.cat((x_q, x_q.new_zeros((pad_batch_to - b,)
-                                                + x_q.shape[1:])), 0)
-        outs = (forward(plan, x_q) if forward is not None else
-                int_forward(model, plan, x_q, head_requant=full, plain=plain,
-                            engine=engine))
-        if padded:
-            outs = {name: t[:b] for name, t in outs.items()}
+        with span("ayq.forward"):
+            if padded:
+                x_q = torch.cat((x_q, x_q.new_zeros((pad_batch_to - b,)
+                                                    + x_q.shape[1:])), 0)
+            outs = (forward(plan, x_q) if forward is not None else
+                    int_forward(model, plan, x_q, head_requant=full,
+                                plain=plain, engine=engine))
+            if padded:
+                outs = {name: t[:b] for name, t in outs.items()}
         return _post(outs)
 
     def _quant(images):
-        return quantize_input(torch.as_tensor(images, device=device), k,
-                              per_image_amax=options.per_image_amax)
+        with span("ayq.ingest"):
+            x = torch.as_tensor(images, device=device)
+        with span("ayq.quantize"):
+            return quantize_input(x, k, per_image_amax=options.per_image_amax)
 
     if coalesce_requests is not None:
         n_req = int(coalesce_requests)
@@ -652,11 +684,13 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
             if len(requests) != n_req:
                 raise ValueError(f"expected {n_req} requests, "
                                  f"got {len(requests)}")
-            sizes = [r.shape[0] for r in requests]
-            x_q = torch.cat([_quant(r) for r in requests], 0)
-            return split_by_sizes(_quantized_run(x_q, sum(sizes)), sizes)
+            with span("ayq"):
+                sizes = [r.shape[0] for r in requests]
+                x_q = torch.cat([_quant(r) for r in requests], 0)
+                return split_by_sizes(_quantized_run(x_q, sum(sizes)), sizes)
     else:
         def fn(images):
-            return _quantized_run(_quant(images), images.shape[0])
+            with span("ayq"):
+                return _quantized_run(_quant(images), images.shape[0])
 
     return fn, plan

@@ -1,8 +1,18 @@
 """Tracing and profiling utilities (counterpart of
-alpha_yolo_quant_tpu/utils/profiling.py): per-stage wall-clock timers, a
+alpha_yolo_quant_tpu/utils/profiling.py): the program's spans, a
 torch.profiler trace of a block (CPU and CUDA activity, written as a
 chrome trace), a timer of one call on the card, and the card's name and
 power limit.
+
+``span(name)`` marks a stage of the serving pipeline for torch.profiler.
+While a ``torch.profiler.profile`` is active it is a
+``torch.profiler.record_function``: the span lands in the same trace as
+the kernels, and every kernel and copy links to the runtime call that
+launched it (``args.correlation`` in the chrome trace), so device time
+and device idle time can be put down to the span that was open on the
+host. Otherwise it is one shared ``contextlib.nullcontext()``: a flag
+read and no name formatted. There is no switch of its own: spans are on
+exactly while a profiler is. ``SPANS`` lists every name.
 
 engine_profile.device_ms is the other timer of the port: it queues the
 calls behind a busy wait of the card so that a call shorter than its
@@ -15,7 +25,56 @@ import contextlib
 import os
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# The program's spans, name -> what it covers. A dotted name nests in the
+# span its prefix names (``ayq.nms.sweep`` in ``ayq.nms`` in ``ayq``); a
+# name ending in "." takes a suffix, one span name per conv layer.
+SPANS = {
+    "ayq": "one call of build_int_pipeline's fn (plain or coalesced); its "
+           "self time is the program's Python between stages",
+    "ayq.ingest": "torch.as_tensor(images, device=...): the host-to-device "
+                  "copy of a request",
+    "ayq.quantize": "quantize_input: the input quantizer",
+    "ayq.forward": "the padding, int_forward (or the sharded forward of "
+                   "parallel/mesh.py) and the slice back",
+    "ayq.forward.conv.": "one conv layer, by ConvNode.name: the kernel "
+                         "call and its wrapper",
+    "ayq.forward.split": "a SplitNode's two channel halves",
+    "ayq.forward.add": "a ResidualAddNode: requant, add, clamp, cast",
+    "ayq.forward.concat": "a ConcatNode: requants, casts, cat",
+    "ayq.forward.maxpool": "a MaxPoolNode",
+    "ayq.forward.upsample": "an UpsampleNode",
+    "ayq.forward.slab": "one SlabExec.run of the packed engine's slab ops",
+    "ayq.forward.head_requant": "requant_heads: the full-quant head's "
+                                "first requant",
+    "ayq.decode": "the decode that runs: decode_select_sparse, "
+                  "decode_full_quant or decode_float",
+    "ayq.nms": "non_max_suppression",
+    "ayq.nms.select": "_select_candidates: sort and gather of the top "
+                      "candidates",
+    "ayq.nms.suppress": "greedy_keep_sorted's areas and (B, M, M) "
+                        "suppress matrix",
+    "ayq.nms.sweep": "one Jacobi sweep of greedy_keep_sorted: gemv, compare "
+                     "and the torch.equal host sync; its instances a batch "
+                     "are the sweep counter",
+    "ayq.nms.compact": "the kept rows to the front: sort, gathers, score "
+                       "map, descale and the det fill",
+}
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, suffix: str = ""):
+    """The span ``name + suffix`` (a name of ``SPANS``) while torch's
+    profiler is on, else the shared null context; the name is joined only
+    when the span is on."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name + suffix)
+    return _OFF
 
 
 def card_name(device="cuda") -> str:
@@ -23,8 +82,6 @@ def card_name(device="cuda") -> str:
     --query-gpu=name,power.limit --format=csv,noheader`` gives them, or
     its name from torch where nvidia-smi is absent: written beside every
     number taken on the card."""
-    import torch
-
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -33,31 +90,6 @@ def card_name(device="cuda") -> str:
     except (OSError, subprocess.SubprocessError):
         out = []
     return out[0] if out else torch.cuda.get_device_name(device)
-
-
-class StageTimer:
-    """Accumulating wall-clock timers keyed by stage name."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        lines = [f"{name:<28} {self.totals[name]*1e3:9.1f} ms "
-                 f"(x{self.counts[name]})"
-                 for name in sorted(self.totals,
-                                    key=lambda n: -self.totals[n])]
-        return "\n".join(lines)
 
 
 @contextlib.contextmanager
@@ -69,8 +101,6 @@ def device_trace(log_dir: Optional[str]):
     if log_dir is None:
         yield None
         return
-    import torch
-
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir,
                         f"trace_{os.getpid()}_{time.time_ns()}.json")
@@ -87,8 +117,6 @@ def bench_fn(fn, *args, iters: int = 10, warmup: int = 2,
     a CUDA device a synchronize and CUDA events around ``iters`` calls;
     on ``device="cpu"`` the host clock around them. A CUDA device without
     a card raises."""
-    import torch
-
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench_fn: no CUDA device; pass device='cpu' to "

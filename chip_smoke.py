@@ -246,7 +246,7 @@ def check_tensor_cores() -> None:
 
     tool = _build.cuda_tool("cuobjdump")
     for name in _build.SOURCES:
-        sass = subprocess.run([tool, "-sass", _build.BUILD_INFO[f"lib_{name}"]],
+        sass = subprocess.run([tool, "-sass", str(_build.targets()[name])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
         n = {op: len(re.findall(rf"\b{re.escape(op)}\.", sass))
@@ -1546,11 +1546,13 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     log(card)
+    t0 = time.perf_counter()
     _build.build()
-    log(f"build: {_build.BUILD_INFO['seconds']:.1f} s for "
+    log(f"build: {time.perf_counter() - t0:.1f} s for "
         f"{len(_build.SOURCES)} sources (sm_90a)")
-    for name in _build.SOURCES:
-        rep = _build.BUILD_INFO.get(f"ptxas_{name}", "")
+    for name, so in _build.targets().items():
+        log_file = so.with_suffix(".log")
+        rep = log_file.read_text() if log_file.exists() else ""
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", rep)]
         spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
                                                rep))

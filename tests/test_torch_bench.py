@@ -1,9 +1,8 @@
 """The port's profiling utilities (utils/profiling.py) and its bench
-(alpha_yolo_quant_torch/bench.py, the CLI's bench) on the CPU: the timer
-report equal to the JAX package's, the trace written, the MAC count equal
-to JAX's shape walk, the bench's JSON lines named as bench.py names them
-and labelled as CPU numbers, and no run on a CUDA device without a
-card."""
+(alpha_yolo_quant_torch/bench.py, the CLI's bench) on the CPU: the trace
+written, the MAC count equal to JAX's shape walk, the bench's JSON lines
+named as bench.py names them and labelled as CPU numbers, and no run on a
+CUDA device without a card (the spans: test_torch_tracing.py)."""
 
 import json
 import os
@@ -17,7 +16,6 @@ import torch
 from alpha_yolo_quant_tpu.config import QuantConfig as JConfig
 from alpha_yolo_quant_tpu.models.graph import build_yolov8_graph as jbuild
 from alpha_yolo_quant_tpu.parallel.pipeline import _node_costs
-from alpha_yolo_quant_tpu.utils import profiling as jprof
 from alpha_yolo_quant_torch import bench
 from alpha_yolo_quant_torch import cli as tcli
 from alpha_yolo_quant_torch.config import QuantConfig
@@ -26,25 +24,6 @@ from alpha_yolo_quant_torch.utils import profiling as tprof
 from test_torch_model_build import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
-
-
-def test_stage_timer_report_equals_jax():
-    totals = {"decode": 0.0123456, "forward": 1.5, "nms": 0.0004,
-              "a_very_long_stage_name_over_28_chars": 0.25}
-    counts = {"decode": 3, "forward": 10, "nms": 1,
-              "a_very_long_stage_name_over_28_chars": 2}
-    reports = []
-    for mod in (tprof, jprof):
-        t = mod.StageTimer()
-        t.totals, t.counts = dict(totals), dict(counts)
-        reports.append(t.report())
-    assert reports[0] == reports[1]
-    assert reports[0].splitlines()[0].startswith("forward ")
-    t = tprof.StageTimer()
-    for _ in range(2):
-        with t.stage("x"):
-            pass
-    assert t.counts == {"x": 2} and t.totals["x"] >= 0.0
 
 
 def test_device_trace_none_is_a_no_op_and_dir_gets_a_trace(tmp_path):
