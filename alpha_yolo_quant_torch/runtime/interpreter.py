@@ -44,6 +44,7 @@ from alpha_yolo_quant_torch.ops.nn import (
     conv2d_int_parts, maxpool2d, upsample_nearest,
 )
 from alpha_yolo_quant_torch.runtime import fused_ops
+from alpha_yolo_quant_torch.runtime.ingest import StagedIngest
 from alpha_yolo_quant_torch.runtime.slabforward import (
     SlabExec, build_slab_plan,
 )
@@ -591,7 +592,11 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
     forward: run forward(plan, x_q) in place of int_forward; it returns the
     six head edges as int_forward(head_requant=<full quant>) does. The
     sharded forwards of parallel/mesh.py come in here, so that they share
-    the rest of the pipeline."""
+    the rest of the pipeline.
+
+    Host images reach a CUDA device through the pipeline's own ring of
+    pinned chunks (runtime/ingest.py StagedIngest); images already on a
+    device, and every call on the CPU, go through torch.as_tensor."""
     from alpha_yolo_quant_torch.postprocess.nms import (
         NmsParams, non_max_suppression, q_nms_params,
     )
@@ -671,9 +676,11 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
                 outs = {name: t[:b] for name, t in outs.items()}
         return _post(outs)
 
+    ingest = StagedIngest(device)
+
     def _quant(images):
         with span("ayq.ingest"):
-            x = torch.as_tensor(images, device=device)
+            x = ingest(images)
         with span("ayq.quantize"):
             return quantize_input(x, k, per_image_amax=options.per_image_amax)
 

@@ -36,8 +36,14 @@ from torch.autograd import profiler as _autograd_profiler
 SPANS = {
     "ayq": "one call of build_int_pipeline's fn (plain or coalesced); its "
            "self time is the program's Python between stages",
-    "ayq.ingest": "torch.as_tensor(images, device=...): the host-to-device "
-                  "copy of a request",
+    "ayq.ingest": "a request to the pipeline's device: on a CUDA device "
+                  "host images are staged chunk by chunk through a ring of "
+                  "pinned slots (runtime/ingest.py), else torch.as_tensor",
+    "ayq.ingest.stage": "one chunk: the host copy into a pinned slot and "
+                        "the enqueue of its copy to the card; its instances "
+                        "a call are the chunk count",
+    "ayq.ingest.wait": "a wait for a slot's last copy to end before the "
+                       "slot is refilled: the host outran the DMA",
     "ayq.quantize": "quantize_input: the input quantizer",
     "ayq.forward": "the padding, int_forward (or the sharded forward of "
                    "parallel/mesh.py) and the slice back",

@@ -9,6 +9,8 @@ installed, without the repo's conftest.py (which imports jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import functools
+import threading
 from typing import List
 
 import numpy as np
@@ -25,7 +27,7 @@ from alpha_yolo_quant_torch.quantize.calibrate import (
 )
 from alpha_yolo_quant_torch.quantize.luts import sigmoid_lut
 from alpha_yolo_quant_torch.quantize.transform import build_quantized_model
-from alpha_yolo_quant_torch.runtime import fused_ops
+from alpha_yolo_quant_torch.runtime import fused_ops, ingest
 from alpha_yolo_quant_torch.runtime import packed_conv as pc
 from alpha_yolo_quant_torch.runtime.golden import golden_forward
 from alpha_yolo_quant_torch.runtime.interpreter import (
@@ -633,3 +635,138 @@ def test_dp_world_one_over_nccl(cuda):
         torch.as_tensor(x, device=cuda))
     np.testing.assert_array_equal(det, det_d.cpu().numpy())
     np.testing.assert_array_equal(n, n_d.cpu().numpy())
+
+
+# the staged ingest (runtime/ingest.py): chunks of a prime byte count, so
+# that the 64-px batches below cross many chunk and float32 boundaries
+SMALL_CHUNK = 10_007
+
+
+@functools.lru_cache(maxsize=1)
+def _ingest_model():
+    return _card_model()
+
+
+def _host_batch(dtype, b, size=64, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (b, 3, size, size)
+    if dtype == "uint8":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    return rng.random(shape, dtype=np.float32)
+
+
+def _chunks(x, chunk):
+    return len(ingest.chunk_plan(x.nbytes, chunk))
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+@pytest.mark.parametrize("b", [1, 3, 128])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_staged_ingest_equals_as_tensor_at_640(cuda, dtype, b, kind):
+    """The ring at its own chunk size over 640-px host batches (B=128
+    uint8 is 157,286,400 bytes, not a whole number of chunks): the device
+    tensor of torch.as_tensor, one staged call counted with its chunks and
+    bytes."""
+    x = _host_batch(dtype, b, 640, seed=b)
+    src = torch.from_numpy(x) if kind == "tensor" else x
+    ingest.reset_counts()
+    got = ingest.StagedIngest(cuda)(src)
+    want = torch.as_tensor(src, device=cuda)
+    assert (got.device, got.dtype, got.shape) == \
+        (want.device, want.dtype, want.shape)
+    assert torch.equal(got, want)
+    assert ingest.STAGED == {"calls": 1,
+                             "chunks": _chunks(x, ingest.CHUNK_BYTES),
+                             "bytes": x.nbytes}
+
+
+def test_device_input_passes_through_the_ingest(cuda):
+    t = torch.arange(96, dtype=torch.uint8, device=cuda).reshape(2, 3, 4, 4)
+    ingest.reset_counts()
+    assert ingest.StagedIngest(cuda)(t) is t
+    assert ingest.STAGED["calls"] == 0
+
+
+@pytest.mark.parametrize("b", [1, 3, 128])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_staged_pipeline_equals_device_input(cuda, monkeypatch, dtype, b):
+    """fn on numpy and CPU-tensor batches gives the detections of fn on
+    the same batch already on the card, bit for bit; only the host
+    batches are staged."""
+    monkeypatch.setattr(ingest, "CHUNK_BYTES", SMALL_CHUNK)
+    fn = build_int_pipeline(_ingest_model(), cuda)[0]
+    x = _host_batch(dtype, b, seed=b)
+    ingest.reset_counts()
+    det_w, n_w = fn(torch.as_tensor(x, device=cuda))
+    assert ingest.STAGED["calls"] == 0
+    for src in (x, torch.from_numpy(x)):
+        det, n = fn(src)
+        assert torch.equal(det, det_w) and torch.equal(n, n_w)
+    assert int(n_w.sum()) > 0
+    assert ingest.STAGED == {"calls": 2,
+                             "chunks": 2 * _chunks(x, SMALL_CHUNK),
+                             "bytes": 2 * x.nbytes}
+
+
+def test_staged_coalesced_fn_equals_device_input(cuda, monkeypatch):
+    """coalesce_requests=3: each host request staged on its own (one
+    uint8 image, a float32 pair, five uint8 images)."""
+    monkeypatch.setattr(ingest, "CHUNK_BYTES", SMALL_CHUNK)
+    fn = build_int_pipeline(_ingest_model(), cuda, coalesce_requests=3)[0]
+    reqs = [_host_batch("uint8", 1, seed=1), _host_batch("float32", 2, seed=2),
+            _host_batch("uint8", 5, seed=3)]
+    want = fn(*[torch.as_tensor(r, device=cuda) for r in reqs])
+    ingest.reset_counts()
+    got = fn(*reqs)
+    for (det, n), (det_w, n_w) in zip(got, want):
+        assert torch.equal(det, det_w) and torch.equal(n, n_w)
+    assert ingest.STAGED["calls"] == 3
+    assert ingest.STAGED["bytes"] == sum(r.nbytes for r in reqs)
+
+
+def test_two_threads_calling_one_staged_fn(cuda, monkeypatch):
+    """Two threads call one fn at once, ten times each, on batches of
+    their own: every answer is the answer of that batch alone."""
+    monkeypatch.setattr(ingest, "CHUNK_BYTES", SMALL_CHUNK)
+    fn = build_int_pipeline(_ingest_model(), cuda)[0]
+    xs = [_host_batch("uint8", 16, seed=s) for s in (21, 22)]
+    wants = [tuple(t.cpu() for t in fn(torch.as_tensor(x, device=cuda)))
+             for x in xs]
+    ingest.reset_counts()
+    start, wrong = threading.Barrier(2), []
+
+    def worker(k):
+        start.wait()
+        for _ in range(10):
+            det, n = fn(xs[k])
+            if not (torch.equal(det.cpu(), wants[k][0])
+                    and torch.equal(n.cpu(), wants[k][1])):
+                wrong.append(k)
+    threads = [threading.Thread(target=worker, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert wrong == []
+    assert ingest.STAGED["calls"] == 20
+
+
+def test_caller_overwrites_its_array_right_after_the_call(cuda, monkeypatch):
+    """The caller's array is rewritten as soon as fn (or the ingest)
+    returns, before the card has caught up: the answers are those of the
+    bytes it handed in."""
+    monkeypatch.setattr(ingest, "CHUNK_BYTES", SMALL_CHUNK)
+    fn = build_int_pipeline(_ingest_model(), cuda)[0]
+    x = _host_batch("uint8", 128, seed=31)
+    keep = x.copy()
+    det_w, n_w = fn(torch.as_tensor(keep, device=cuda))
+    ingest.reset_counts()
+    det, n = fn(x)
+    x[...] = 255 - x
+    assert torch.equal(det, det_w) and torch.equal(n, n_w)
+    big = _host_batch("uint8", 128, 640, seed=32)
+    keep = big.copy()
+    got = ingest.StagedIngest(cuda)(big)
+    big[...] = 0
+    assert torch.equal(got, torch.as_tensor(keep, device=cuda))
+    assert ingest.STAGED["calls"] == 2

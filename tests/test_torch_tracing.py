@@ -1,7 +1,8 @@
 """The port's spans (utils/profiling.span, SPANS) on the CPU: off while no
 torch profiler runs, one span of each pipeline stage a call under one,
 nested as their dotted names say, one ``ayq.nms.sweep`` a sweep of the
-keep-mask loop, and the same detections with the profiler on and off."""
+keep-mask loop, one ``ayq.ingest.stage`` a chunk of the staged ingest, and
+the same detections with the profiler on and off."""
 
 import collections
 
@@ -22,10 +23,12 @@ from alpha_yolo_quant_torch.quantize.calibrate import (
     collect_stats, reduce_stats,
 )
 from alpha_yolo_quant_torch.quantize.transform import build_quantized_model
+from alpha_yolo_quant_torch.runtime import ingest
 from alpha_yolo_quant_torch.runtime.interpreter import (
     build_int_pipeline, slab_plan,
 )
 from alpha_yolo_quant_torch.utils import profiling
+from test_torch_ingest import FakeEvent, fake_cuda  # noqa: F401
 from test_torch_model_build import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -175,6 +178,39 @@ def _chain(m):
     x = torch.arange(m, dtype=torch.float32) * 4.0
     return torch.stack((x, torch.zeros(m), x + 10.0, torch.full((m,), 10.0)),
                        -1)
+
+
+@pytest.mark.parametrize("name", ["ayq.ingest.stage", "ayq.ingest.wait"])
+def test_staged_ingest_spans_are_listed_under_the_ingest(name):
+    assert name in profiling.SPANS
+    assert _expected_parent(name) == "ayq.ingest"
+
+
+@pytest.mark.parametrize("busy", [False, True])
+def test_one_stage_span_a_chunk_nested_in_the_ingest(fake_cuda, monkeypatch,
+                                                     busy):
+    """The ring's loop over stand-in streams and events (test_torch_ingest)
+    under a profiler: one ``ayq.ingest.stage`` a chunk, one
+    ``ayq.ingest.wait`` a wait (none while every slot comes back free),
+    each inside ``ayq.ingest`` (opened here as the pipeline opens it)."""
+    monkeypatch.setattr(ingest, "CHUNK_BYTES", 1000)
+    monkeypatch.setattr(ingest, "SLOTS", 2)
+    monkeypatch.setattr(FakeEvent, "busy", busy)
+    x = torch.arange(4500, dtype=torch.int32).to(torch.uint8)
+    st = ingest.StagedIngest("cpu")
+
+    def call():
+        with profiling.span("ayq"), profiling.span("ayq.ingest"):
+            return st._staged(x)
+    got, spans = _profiled(call)
+    assert torch.equal(got, x)
+    names = collections.Counter(s.name for s in spans)
+    assert names["ayq.ingest.stage"] == 5 == ingest.STAGED["chunks"]
+    assert names["ayq.ingest.wait"] == (3 if busy else 0)
+    for s in spans:
+        assert _in_table(s.name), s.name
+        parent = _innermost_parent(s, spans)
+        assert (parent.name if parent else None) == _expected_parent(s.name)
 
 
 @pytest.mark.parametrize("case", ["chain", "random"])
