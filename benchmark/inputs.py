@@ -17,9 +17,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from benchmark.reference.forward import calibration_taps
-from benchmark.reference.graph import Graph
-
 STREAMS = ("weights", "calibration", "pool", "sample")
 
 
@@ -40,7 +37,7 @@ class Seeds:
         return g
 
 
-def make_params(graph: Graph, seeds: Seeds, device) -> Dict:
+def make_params(graph, seeds: Seeds, device) -> Dict:
     """Fused float32 params of every conv: weights normal with variance
     1/fan_in (variance-conserving, so that sixty stacked SiLU convs stay
     calibratable), biases normal with sd 0.02, the DFL weight arange(16);
@@ -69,15 +66,16 @@ def make_params(graph: Graph, seeds: Seeds, device) -> Dict:
     return params
 
 
-def make_max_a(graph: Graph, params: Dict, seeds: Seeds, n_images: int,
+def make_max_a(ref, graph, params: Dict, seeds: Seeds, n_images: int,
                image_size: int, device) -> Dict[str, float]:
     """The calibration a deployment's ``calibrate`` step writes: per tap the
-    largest pre-activation magnitude of the plain float forward over
-    ``n_images`` seeded images, uniform in [0, 1)."""
+    largest pre-activation magnitude of the plain float forward of the
+    cell's reference ``ref`` (benchmark/spec.reference) over ``n_images``
+    seeded images, uniform in [0, 1)."""
     x = torch.rand((n_images, 3, image_size, image_size),
                    generator=seeds.torch("calibration", device),
                    device=device)
-    return calibration_taps(graph, params, x)
+    return ref.forward.calibration_taps(graph, params, x)
 
 
 def make_pool(seeds: Seeds, n_images: int, image_size: int,

@@ -12,8 +12,8 @@ machine with the card(s) the cell asks for. A run:
 2. measures for ``--seconds`` (benchmark/loops.py); with ``--trace 1``
    it then profiles a few more batches;
 3. frees the program's state and holds the window's answers for a sample
-   of pool images against the plain reference (benchmark/reference,
-   benchmark/check.py);
+   of pool images against the plain reference the configuration names
+   (benchmark/spec.reference, benchmark/check.py);
 4. prints the checks on stderr and, as the last line of stdout, one JSON
    object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
    end-to-end metrics, or with ``--trace 1`` its per-layer ones),
@@ -47,10 +47,6 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmark import check, counts, inputs, loops, program, spec  # noqa
-from benchmark.reference import config as ref_config  # noqa: E402
-from benchmark.reference import graph as ref_graph  # noqa: E402
-from benchmark.reference import pipeline as ref_pipeline  # noqa: E402
-from benchmark.reference import quant as ref_quant  # noqa: E402
 
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "alpha_yolo_quant_tpu"})
 REF_BLOCK = 4        # images per block of the reference's convs
@@ -69,29 +65,36 @@ class Run:
 
 
 def ref_cfg(config: Dict, k: Optional[int] = None):
-    return ref_config.QuantConfig(model=config["model"],
-                                  k=config["k"] if k is None else k,
-                                  full_quant=config["full_quant"],
-                                  image_size=config["image_size"],
-                                  koeff_bits=config["koeff_bits"])
+    """The configuration's reference ``QuantConfig``, at bit width ``k``
+    (the file's where None)."""
+    return spec.reference(config).config.QuantConfig(
+        model=config["model"], k=config["k"] if k is None else k,
+        full_quant=config["full_quant"], image_size=config["image_size"],
+        koeff_bits=config["koeff_bits"])
 
 
-def check_config(config: Dict, graph: ref_graph.Graph) -> None:
-    """The configuration file states the shapes that run: its scale is the
-    reference's for the model's name, and its classes, box bins, convs
-    and conv weights are those of the graph built from it."""
+def check_config(config: Dict, graph) -> None:
+    """The configuration file states the shapes that run: its scale is its
+    reference's for the model's name, its classes are the Cout of every
+    level's ``<level>_cls`` output and 4 x its box bins that of every
+    ``<level>_box``, and its convs and conv weights are those of the graph
+    built from it."""
     cfg = ref_cfg(config)
     scale = config["scale"]
-    head = {role: n.cout for n in graph.convs()
-            for role, e in graph.outputs.items() if n.dst == e}
+    convs = graph.convs()
+    cout = {n.dst: n.cout for n in convs}
     stated = {"depth_multiple": (scale["depth_multiple"], cfg.depth),
               "width_multiple": (scale["width_multiple"], cfg.width),
               "max_channels": (scale["max_channels"], 512 * cfg.ratio),
-              "nc": (config["nc"], head["p3_cls"]),
-              "reg_max": (4 * config["reg_max"], head["p3_box"]),
-              "convs": (config["convs"], len(graph.convs())),
+              "convs": (config["convs"], len(convs)),
               "conv_weights": (config["conv_weights"], sum(
-                  n.cout * n.cin * n.kernel ** 2 for n in graph.convs()))}
+                  n.cout * n.cin * n.kernel ** 2 for n in convs))}
+    per_level = {"cls": ("nc", config["nc"]),
+                 "box": ("reg_max", 4 * config["reg_max"])}
+    for role, e in graph.outputs.items():
+        level, kind = role.rsplit("_", 1)
+        key, value = per_level[kind]
+        stated[f"{key}.{level}"] = (value, cout[e])
     wrong = {k: v for k, v in stated.items() if v[0] != v[1]}
     if wrong:
         raise ValueError(f"{config['name']}: stated != built {wrong}")
@@ -100,12 +103,13 @@ def check_config(config: Dict, graph: ref_graph.Graph) -> None:
 def reference_fn(config: Dict, params: Dict, max_a: Dict, k: int, device):
     """The plain reference as a pipeline ``fn`` at bit width ``k``: the
     control puts it in the program's place."""
+    ref = spec.reference(config)
     cfg = ref_cfg(config, k)
-    qm = ref_quant.quantize_model(ref_graph.build_yolov8_graph(cfg), params,
+    qm = ref.quant.quantize_model(ref.graph.build_yolov8_graph(cfg), params,
                                   max_a, cfg)
 
     def fn(images):
-        det, n = ref_pipeline.detect(qm, np.asarray(images), config["nms"],
+        det, n = ref.pipeline.detect(qm, np.asarray(images), config["nms"],
                                      device, REF_BLOCK)
         return torch.as_tensor(det), torch.as_tensor(n)
     return fn
@@ -125,11 +129,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if no_warmup:
         traffic = dict(traffic, warmup_batches=0)
     size = config["image_size"]
-    graph = ref_graph.build_yolov8_graph(ref_cfg(config))
+    ref = spec.reference(config)
+    graph = ref.graph.build_yolov8_graph(ref_cfg(config))
     check_config(config, graph)
     seeds = inputs.Seeds(seed)
     params = inputs.make_params(graph, seeds, device)
-    max_a = inputs.make_max_a(graph, params, seeds,
+    max_a = inputs.make_max_a(ref, graph, params, seeds,
                               config["calibration_images"], size, device)
     n_pool = traffic["batch"] * traffic["pool_batches"]
     pool = inputs.make_pool(seeds, n_pool, size, device)
@@ -148,16 +153,18 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    qm = ref_quant.quantize_model(graph, params, max_a, ref_cfg(config))
-    det, n = ref_pipeline.detect(qm, pool[checked], config["nms"], device,
+    qm = ref.quant.quantize_model(graph, params, max_a, ref_cfg(config))
+    det, n = ref.pipeline.detect(qm, pool[checked], config["nms"], device,
                                  REF_BLOCK)
     checks = check.compare(w.answers, {i: (det[j], n[j])
                                        for j, i in enumerate(checked)})
     ref_s = time.perf_counter() - t_ref
 
+    shapes = ref.graph.edge_shapes(graph, size)
     run = Run(cell, w, w.setup_end - T_START,
-              counts.image_macs(graph, size),
-              lambda b: counts.forward_bound_s(graph, size, qm.edge_amax, b))
+              counts.image_macs(graph, shapes),
+              lambda b: counts.forward_bound_s(graph, shapes, qm.edge_amax,
+                                               b))
     metrics = {}
     for m in spec.metrics(bench, workload, trace):
         v = spec.reader(m["name"], root)(run)

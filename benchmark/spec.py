@@ -5,21 +5,50 @@
 - a traffic mix is ``benchmark/traffic/<traffic>.json``, the parameters
   the general generator (inputs.py, loops.py) reads;
 - a metric is ``benchmark/metrics/<name>.py``, a reader with
-  ``read(run) -> float | None`` (None: nothing to read in this run).
+  ``read(run) -> float | None`` (None: nothing to read in this run);
+- a configuration's plain reference is the package ``benchmark/<name>/``
+  that its file's ``"reference"`` key names (``reference`` where the key
+  is absent), loaded by ``reference(config)``.
 
-Adding a configuration, a mix or a metric takes new files and entries
-only.
+Adding a configuration, its reference, a mix or a metric takes new files
+and entries only.
+
+A reference package is plain PyTorch and NumPy that imports nothing of
+the program or of JAX, and has these modules (a module may import what it
+shares from another reference package, such as ``benchmark.reference``):
+
+- ``config.QuantConfig(model=, k=, full_quant=, image_size=,
+  koeff_bits=)``, with the scale's ``depth``, ``width`` and ``ratio``
+  (the channel cap is ``512 * ratio``);
+- ``graph.build_yolov8_graph(cfg) -> graph`` and
+  ``graph.edge_shapes(graph, image_size) -> {edge: (C, H, W)}`` of one
+  image. The harness reads of a graph ``convs()``, each conv's ``name``,
+  ``key``, ``src``, ``dst``, ``cin``, ``cout``, ``kernel`` and ``silu``,
+  and ``outputs``: role -> edge, one ``<level>_cls`` and one
+  ``<level>_box`` role for each detect level, whatever the levels;
+- ``forward.calibration_taps(graph, params, images) -> {tap: max-abs}``,
+  the float32 calibration forward;
+- ``quant.quantize_model(graph, params, max_a, cfg) -> model``, the
+  integer model, whose ``edge_amax`` (edge -> integer magnitude bound)
+  sets each conv input's byte width in benchmark/counts.py;
+- ``pipeline.detect(model, images, nms, device, block) -> (det, n_det)``:
+  uint8 NCHW images to the detections the program's ``fn`` gives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
+import re
+import types
 from pathlib import Path
 from typing import Dict, List
 
 ROOT = Path(__file__).resolve().parent.parent
+DEFAULT_REFERENCE = "reference"
+REFERENCE_MODULES = ("config", "graph", "forward", "quant", "pipeline")
 
 
 @dataclasses.dataclass
@@ -78,3 +107,14 @@ def reader(name: str, root: Path = ROOT):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def reference(config: Dict) -> types.SimpleNamespace:
+    """The modules of the plain reference the configuration names, by
+    their names in ``REFERENCE_MODULES``."""
+    name = config.get("reference", DEFAULT_REFERENCE)
+    if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name):
+        raise ValueError(f"reference {name!r} is not a package name")
+    return types.SimpleNamespace(**{
+        m: importlib.import_module(f"benchmark.{name}.{m}")
+        for m in REFERENCE_MODULES})

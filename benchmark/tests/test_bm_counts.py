@@ -4,7 +4,9 @@ against the program's own counts."""
 import pytest
 import torch
 
-from benchmark import counts, inputs, run
+from benchmark import counts, inputs, run, spec
+
+REF = spec.reference({})
 
 
 @pytest.mark.parametrize("model,macs", [("yolov8n", 4_371_456_000),
@@ -15,9 +17,8 @@ def test_image_macs(model, macs):
         build_yolov8_graph, node_costs,
     )
 
-    g = run.ref_graph.build_yolov8_graph(
-        run.ref_config.QuantConfig(model=model))
-    assert counts.image_macs(g, 640) == macs
+    g = REF.graph.build_yolov8_graph(REF.config.QuantConfig(model=model))
+    assert counts.image_macs(g, REF.graph.edge_shapes(g, 640)) == macs
     pg = build_yolov8_graph(QuantConfig(model=model))
     assert sum(node_costs(pg, 640)) == macs
 
@@ -38,19 +39,19 @@ def test_bytes_agree_with_the_program_plan(one_thread):
     config = {"model": "yolov8n", "k": 8, "full_quant": True,
               "image_size": 640, "koeff_bits": 8}
     cfg = run.ref_cfg(config)
-    graph = run.ref_graph.build_yolov8_graph(cfg)
+    graph = REF.graph.build_yolov8_graph(cfg)
     seeds = inputs.Seeds(9)
     params = inputs.make_params(graph, seeds, "cpu")
-    max_a = inputs.make_max_a(graph, params, seeds, 1, 640, "cpu")
-    qm = run.ref_quant.quantize_model(graph, params, max_a, cfg)
+    max_a = inputs.make_max_a(REF, graph, params, seeds, 1, 640, "cpu")
+    qm = REF.quant.quantize_model(graph, params, max_a, cfg)
     pcfg = __import__("alpha_yolo_quant_torch.config",
                       fromlist=["QuantConfig"]).QuantConfig(
         model="yolov8n", k=8, full_quant=True, image_size=640)
     pm = build_quantized_model(build_yolov8_graph(pcfg), params, max_a, pcfg)
     assert {e: v > 127 for e, v in qm.edge_amax.items()} == \
         {e: v > 127 for e, v in pm.edge_amax_int.items()}
-    shapes = run.ref_graph.edge_shapes(graph, 640)
-    mine = counts.conv_bytes(graph, 640, qm.edge_amax, 128)
+    shapes = REF.graph.edge_shapes(graph, 640)
+    mine = counts.conv_bytes(graph, shapes, qm.edge_amax, 128)
     checked = 0
     for node in graph.convs():
         if (node.kernel ** 2 * node.cin) % fused_ops.K_TILE:

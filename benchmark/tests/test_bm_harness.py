@@ -1,10 +1,13 @@
 """The harness on the CPU at 64 px: runs of each cell come out correct,
 broken pipelines and the control come out not correct, files added by
-name are found, the inputs are a function of the seed, and nothing loads
-JAX."""
+name are found (a configuration's own reference among them), the inputs
+are a function of the seed, and nothing loads JAX."""
 
 import ast
+import dataclasses
+import importlib
 import json
+import shutil
 import subprocess
 import sys
 
@@ -12,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import benchmark
 from benchmark import control, inputs, loops, run, spec
 from benchmark.spec import ROOT
 
@@ -126,6 +130,138 @@ def test_configuration_must_state_the_shapes_that_run(tiny_root, key,
                      tiny_root)
 
 
+def test_every_level_must_state_the_classes():
+    """A graph whose detect levels disagree on the classes is refused,
+    whichever level it is."""
+    config = spec.cell(spec.load(), CELLS[0]).config
+    ref = spec.reference(config)
+    graph = ref.graph.build_yolov8_graph(run.ref_cfg(config))
+    run.check_config(config, graph)
+    p4_cls = graph.outputs["p4_cls"]
+    nodes = tuple(dataclasses.replace(n, cout=n.cout - 1)
+                  if getattr(n, "dst", None) == p4_cls else n
+                  for n in graph.nodes)
+    bad = dataclasses.replace(graph, nodes=nodes)
+    with pytest.raises(ValueError, match="nc.p4") as e:
+        run.check_config(dict(config, conv_weights=sum(
+            n.cout * n.cin * n.kernel ** 2 for n in bad.convs())), bad)
+    assert "nc.p3" not in str(e.value) and "nc.p5" not in str(e.value)
+
+
+@pytest.fixture
+def copied_reference(tmp_path):
+    """Copies of benchmark/reference under other package names, in a
+    directory added to the ``benchmark`` package's path, never the
+    checkout: ``copy(name, edit)`` makes ``benchmark.<name>``, with
+    ``edit(module, text) -> text`` applied to each module's source."""
+    pkgs = tmp_path / "packages"
+    pkgs.mkdir()
+    made = []
+
+    def copy(name, edit=lambda module, text: text):
+        dst = pkgs / name
+        shutil.copytree(ROOT / "benchmark" / "reference", dst,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        for p in dst.glob("*.py"):
+            text = p.read_text().replace("benchmark.reference.",
+                                         f"benchmark.{name}.")
+            p.write_text(edit(p.stem, text))
+        made.append(name)
+        importlib.invalidate_caches()
+        return name
+
+    benchmark.__path__.append(str(pkgs))
+    try:
+        yield copy
+    finally:
+        benchmark.__path__.remove(str(pkgs))
+        for m in [m for m in sys.modules if m.split(".")[:2] in
+                  (["benchmark", n] for n in made)]:
+            del sys.modules[m]
+
+
+def _name_reference(root, cell, name):
+    """Point the configuration of ``cell`` in the tree at ``root`` to the
+    reference package ``name``."""
+    bench = spec.load(root)
+    entry = next(c for c in bench["configs"] if c["name"] == next(
+        w["config"] for w in bench["workloads"] if w["name"] == cell))
+    p = root / entry["file"]
+    p.write_text(json.dumps(dict(json.loads(p.read_text()), reference=name)))
+
+
+def _stride_p3(module, text):
+    """The reference's first detect level at stride 9 instead of 8."""
+    if module != "pipeline":
+        return text
+    assert "STRIDES = (8, 16, 32)" in text
+    return text.replace("STRIDES = (8, 16, 32)", "STRIDES = (9, 16, 32)")
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_configuration_runs_the_reference_it_names(tiny_root, one_thread,
+                                                     copied_reference, cell):
+    """A configuration that names its own copy of the reference runs
+    through run.py, control.py, inputs and counts with no other file
+    changed: it comes out correct, and the control run through it does
+    not; a copy with one constant of its head altered comes out not
+    correct, so the named copy is the one that judges."""
+    _name_reference(tiny_root, cell, copied_reference("reference_copy"))
+    out = run.run_cell(cell, SEED, 0.3, True, "cpu", tiny_root)["result"]
+    assert out["correct"], out["checks"]
+    assert sys.modules["benchmark.reference_copy.pipeline"]
+    assert out["metrics"]["mfu.offline"]["value"] > 0
+    ctl = control.control_run(cell, SEED, 0.3, "cpu", tiny_root)
+    assert not ctl["correct"]
+    assert ctl["checks"]["answers_wrong"]["value"] > 0
+    _name_reference(tiny_root, cell,
+                    copied_reference("reference_altered", _stride_p3))
+    out = run.run_cell(cell, SEED, 0.3, False, "cpu", tiny_root)["result"]
+    assert not out["correct"]
+    assert out["checks"]["answers_wrong"]["value"] > 0
+
+
+def test_a_reference_name_is_a_package_name():
+    with pytest.raises(ValueError, match="package name"):
+        spec.reference({"reference": "../reference"})
+
+
+def _reference_packages():
+    """The reference packages under benchmark/: the default, each one a
+    configuration names, and each that spec.reference can load."""
+    named = {spec.DEFAULT_REFERENCE} | {
+        json.loads((ROOT / c["file"]).read_text()).get(
+            "reference", spec.DEFAULT_REFERENCE)
+        for c in spec.load()["configs"]}
+    loadable = {d.name for d in (ROOT / "benchmark").iterdir()
+                if all((d / f"{m}.py").is_file()
+                       for m in spec.REFERENCE_MODULES)}
+    return named | loadable
+
+
+def test_no_harness_module_imports_the_reference():
+    """The harness reaches a cell's reference only through
+    spec.reference: no module of it imports benchmark.reference. A
+    reference package is no harness module and may reuse another's."""
+    skip = _reference_packages() | {"tests", ".cache"}
+    files = [p for p in (ROOT / "benchmark").rglob("*.py")
+             if p.relative_to(ROOT / "benchmark").parts[0] not in skip]
+    assert len(files) > 10
+    for p in files:
+        for n in _imports(p):
+            assert not n.startswith("benchmark.reference"), (p, n)
+
+
+def _imports(path):
+    """Every module name an import statement of ``path`` may load."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
 def test_inputs_are_a_function_of_the_seed():
     pools = [inputs.make_pool(inputs.Seeds(s), 3, 32, "cpu")
              for s in (SEED, SEED, SEED + 1)]
@@ -134,8 +270,9 @@ def test_inputs_are_a_function_of_the_seed():
     samples = [loops.sample(inputs.Seeds(s), 512, 16)
                for s in (SEED, SEED, SEED + 1)]
     assert samples[0] == samples[1] != samples[2]
-    graph = run.ref_graph.build_yolov8_graph(
-        run.ref_config.QuantConfig(image_size=64))
+    ref = spec.reference({})
+    graph = ref.graph.build_yolov8_graph(ref.config.QuantConfig(
+        image_size=64))
     p1, p2, p3 = (inputs.make_params(graph, inputs.Seeds(s), "cpu")
                   for s in (SEED, SEED, SEED + 1))
     assert all(np.array_equal(p1[k]["w"], p2[k]["w"]) for k in p1)
@@ -163,23 +300,22 @@ def test_no_jax_after_each_cell(tiny_root):
 
 
 def test_reference_imports_nothing_of_the_program():
-    ref = ROOT / "benchmark" / "reference"
-    for p in ref.glob("*.py"):
-        for node in ast.walk(ast.parse(p.read_text())):
-            names = ([a.name for a in node.names]
-                     if isinstance(node, ast.Import) else
-                     [node.module or ""] if isinstance(node, ast.ImportFrom)
-                     else [])
-            for n in names:
-                assert n.split(".")[0] not in (
-                    run.FORBIDDEN | {"alpha_yolo_quant_torch"}), (p, n)
-    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r})\n"
-            "import benchmark.reference.pipeline, benchmark.reference.forward"
-            "\nprint(sorted({m.split('.')[0] for m in sys.modules}))\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120, check=True)
-    loaded = set(ast.literal_eval(out.stdout.strip().splitlines()[-1]))
-    assert not loaded & (run.FORBIDDEN | {"alpha_yolo_quant_torch"})
+    """Neither benchmark/reference nor any package a configuration names
+    imports the program or JAX, by its sources or when loaded."""
+    banned = run.FORBIDDEN | {"alpha_yolo_quant_torch"}
+    for name in sorted(_reference_packages()):
+        for p in (ROOT / "benchmark" / name).glob("*.py"):
+            for n in _imports(p):
+                assert n.split(".")[0] not in banned, (p, n)
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r})\n"
+                "from benchmark import spec\n"
+                f"spec.reference({{'reference': {name!r}}})\n"
+                "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=120,
+                             check=True)
+        loaded = set(ast.literal_eval(out.stdout.strip().splitlines()[-1]))
+        assert not loaded & banned, name
 
 
 def test_no_card_no_result(monkeypatch, capsys):

@@ -6,7 +6,7 @@ precision lower (K=4 for K=8) does not."""
 import numpy as np
 import pytest
 
-from benchmark import inputs, program, run
+from benchmark import inputs, program, run, spec
 
 NMS = {"conf_thres_int": 8192, "iou_thres": 0.45, "pre_topk": 1000,
        "max_det": 300, "max_wh": 7680.0}
@@ -19,10 +19,11 @@ def _config(model, size):
 
 def _setup(model, size, seed):
     config = _config(model, size)
-    graph = run.ref_graph.build_yolov8_graph(run.ref_cfg(config))
+    ref = spec.reference(config)
+    graph = ref.graph.build_yolov8_graph(run.ref_cfg(config))
     seeds = inputs.Seeds(seed)
     params = inputs.make_params(graph, seeds, "cpu")
-    max_a = inputs.make_max_a(graph, params, seeds, 2, size, "cpu")
+    max_a = inputs.make_max_a(ref, graph, params, seeds, 2, size, "cpu")
     images = inputs.make_pool(seeds, 4, size, "cpu")
     return config, params, max_a, images
 

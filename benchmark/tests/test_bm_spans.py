@@ -1,14 +1,14 @@
 """The program's spans in a profiler trace (benchmark/spans.py): device time,
 idle time and instances by span on a small synthetic chrome trace, the
-readings of benchmark/trace.py unmoved by the spans, and a traced CPU run
-broken down by them."""
+stage readings and breakdown from the trace summary, the span metrics'
+readers, and a traced CPU run broken down by them."""
 
-import dataclasses
+from types import SimpleNamespace
 
 import pytest
 
-from benchmark import spans, trace
-from benchmark.tests.test_bm_trace import EVENTS, _x
+from benchmark import loops, spans, spec, trace
+from benchmark.tests.test_bm_trace import _x
 
 SEED = 2 ** 31 + 7
 
@@ -56,8 +56,7 @@ SPAN_EVENTS = [
 
 
 def test_device_idle_and_instances_by_span():
-    sp = spans.attribute(SPAN_EVENTS, *spans.window(SPAN_EVENTS,
-                                                    "benchmark.profiled"))
+    sp = trace.summarize(SPAN_EVENTS, "benchmark.profiled")
     flat = {(span, op): s for span, ops in sp.device_s_by_span.items()
             for op, s in ops.items()}
     assert flat == pytest.approx({
@@ -67,39 +66,40 @@ def test_device_idle_and_instances_by_span():
         ("ayq.forward", "copy_k"): 10e-6,
         ("ayq.nms.sweep", "gemv"): 40e-6,
         ("ayq", "Memcpy DtoH"): 20e-6,
-        (spans.OUTSIDE, "late_k"): 30e-6, (spans.OUTSIDE, "orphan_k"): 10e-6})
+        (trace.OUTSIDE, "late_k"): 30e-6, (trace.OUTSIDE, "orphan_k"): 10e-6})
     # busy [130,180) [230,460) [630,650) [720,740) [960,980) [1020,1050)
     # [1060,1070); each gap at its midpoint: 115 quantize, 205 and 545
     # forward, 685 the first sweep, 850 nms, 1000, 1055, 1085 outside
     assert sp.idle_by_span == pytest.approx({
         "ayq.quantize": 30e-6, "ayq.forward": 220e-6,
-        "ayq.nms.sweep": 70e-6, "ayq.nms": 220e-6, spans.OUTSIDE: 80e-6})
+        "ayq.nms.sweep": 70e-6, "ayq.nms": 220e-6, trace.OUTSIDE: 80e-6})
     assert sp.span_counts == {"ayq": 1, "ayq.quantize": 1, "ayq.forward": 1,
                               "ayq.forward.conv.L1": 1,
                               "ayq.forward.concat": 1, "ayq.nms": 1,
                               "ayq.nms.sweep": 2}
-    assert sp.syncs_by_span == {"ayq.nms.sweep": 1, spans.OUTSIDE: 1}
-    assert sp.device_s("ayq.forward") == pytest.approx(230e-6)
-    assert sp.device_s("ayq.forward", spans.PORT_KERNELS) == pytest.approx(
-        60e-6)
-    assert sp.device_s("ayq") == pytest.approx(340e-6)
-    assert sp.idle_s("ayq.nms") == pytest.approx(290e-6)
-    assert sp.idle_s("ayq.n") == 0.0
-    s = trace.summarize(SPAN_EVENTS, "benchmark.profiled")
+    assert sp.syncs_by_span == {"ayq.nms.sweep": 1, trace.OUTSIDE: 1}
+    assert spans.device_s(sp, "ayq.forward") == pytest.approx(230e-6)
+    assert spans.device_s(sp, "ayq.forward", spans.PORT_KERNELS) == \
+        pytest.approx(60e-6)
+    assert spans.device_s(sp, "ayq") == pytest.approx(340e-6)
+    assert spans.idle_s(sp, "ayq.nms") == pytest.approx(290e-6)
+    assert spans.idle_s(sp, "ayq.n") == 0.0
     total = sum(sum(ops.values()) for ops in sp.device_s_by_span.values())
-    assert total == pytest.approx(sum(s.device_s_by_name.values()))
-    assert sum(sp.idle_by_span.values()) == pytest.approx(s.span_s - s.busy_s)
+    assert total == pytest.approx(sum(sp.device_s_by_name.values()))
+    assert sum(sp.idle_by_span.values()) == pytest.approx(
+        sp.span_s - sp.busy_s)
+
+
+STAGES = {
+    "ingest_ms": 0.0, "quantize_ms": 0.025, "forward_glue_ms": 0.03,
+    "forward_idle_ms": 0.11, "decode_ms": 0.0, "nms_ms": 0.02,
+    "nms_sweeps": 1.0, "nms_idle_ms": 0.145}
 
 
 def test_breakdown_covers_the_torch_glue():
-    sp = spans.attribute(SPAN_EVENTS, *spans.window(SPAN_EVENTS,
-                                                    "benchmark.profiled"))
     s = trace.summarize(SPAN_EVENTS, "benchmark.profiled")
-    b = spans.breakdown(sp, s, 2, {"L1": 40e-6})
-    assert b["stages"] == pytest.approx({
-        "quantize_ms": 0.025, "forward_glue_ms": 0.03,
-        "forward_idle_ms": 0.11, "decode_ms": 0.0, "nms_ms": 0.02,
-        "nms_sweeps": 1.0, "nms_idle_ms": 0.145})
+    b = spans.breakdown(s, 2, {"L1": 40e-6})
+    assert b["stages"] == pytest.approx(STAGES)
     # the rest: the root's copy back and the two kernels outside
     assert b["check"]["rest_ms"] == pytest.approx(0.03)
     assert b["check"]["stages_and_rest_ms"] == pytest.approx(
@@ -115,16 +115,72 @@ def test_breakdown_covers_the_torch_glue():
     assert b["check"]["host_syncs"] == b["check"]["syncs_by_span"] == 1.0
 
 
-def test_spans_leave_every_trace_reading_as_it_was():
-    annotated = EVENTS + [
-        _ann("ayq", 100, 900), _ann("ayq.forward", 100, 350),
-        _ann("ayq.forward.conv.Conv_P1", 100, 90),
-        _ann("ayq.nms", 450, 500), _ann("ayq.nms.sweep", 450, 160),
-        _x("ayq.forward", "gpu_user_annotation", 120, 280, tid=7)]
-    for annotation in ("benchmark.profiled", None):
-        before = trace.summarize(EVENTS, annotation)
-        after = trace.summarize(annotated, annotation)
-        assert dataclasses.asdict(after) == dataclasses.asdict(before)
+INGEST_EVENTS = [
+    _ann("benchmark.profiled", 0, 100),
+    _ann("ayq.ingest", 0, 60), _ann("ayq.ingest.stage", 10, 40),
+    _launch(1, 15), _dev("Memcpy HtoD (Pinned -> Device)", 20, 25, 1,
+                         "gpu_memcpy"),
+    _ann("ayq.quantize", 60, 30),
+    _launch(2, 62), _dev("quant_k", 70, 20, 2),
+]
+
+
+@pytest.mark.parametrize("events,steps,want", (
+    (SPAN_EVENTS, 2, STAGES),
+    # the ingest's device time counts its H2D copy (25 us); its idle:
+    # [0, 20) in the stage, [45, 70) at 57.5 in the ingest ([90, 100) is
+    # outside the program)
+    (INGEST_EVENTS, 1, dict(dict.fromkeys(STAGES, 0.0),
+                            ingest_ms=0.07, quantize_ms=0.02))),
+    ids=("spans", "ingest"))
+def test_each_stage_metric_reads_the_summary(events, steps, want):
+    """Each span metric's reader gives the stage reading of the run's
+    trace summary, as the breakdown does; without device events, None."""
+    def read(k, window):
+        return spec.reader(f"{k}.offline")(SimpleNamespace(window=window))
+
+    names = {f"{k}.offline" for k in STAGES}
+    assert names <= {m["name"] for m in spec.load()["per_layer"]}
+    s = trace.summarize(events, "benchmark.profiled")
+    assert spans.breakdown(s, steps)["stages"] == pytest.approx(want)
+    w = loops.Window(seconds=1.0, setup_end=0.0, images=8, batch=4,
+                     steps_profiled=steps, trace=s)
+    for k in STAGES:
+        assert read(k, w) == pytest.approx(want[k]), k
+    hostonly = trace.summarize([e for e in events
+                                if e.get("cat") not in trace.DEVICE_CATS],
+                               "benchmark.profiled")
+    for window in (loops.Window(1.0, 0.0, 8, 4, steps_profiled=steps,
+                                trace=hostonly),
+                   loops.Window(1.0, 0.0, 8, 4)):
+        assert all(read(k, window) is None for k in STAGES)
+
+
+def test_the_other_per_layer_readers_read_as_without_spans():
+    """The six readers that read the trace's own fields give, on a trace
+    with spans, what the arithmetic of those fields gives by hand."""
+    events = SPAN_EVENTS + [
+        _ann("ayq.ingest", 1000, 5), _launch(10, 1001),
+        _dev("Memcpy HtoD (Pinned -> Device)", 1090, 8, 10, "gpu_memcpy")]
+    w = loops.Window(seconds=1.5, setup_end=0.0, images=12, batch=4,
+                     steps_profiled=2,
+                     trace=trace.summarize(events, "benchmark.profiled"))
+    run = SimpleNamespace(window=w, macs_per_image=10 ** 9,
+                          forward_bound_s=lambda b: 2e-5 * b)
+    want = {
+        # 8 img/s x 2 x 1e9 MACs over 1.979e15 op/s
+        "mfu.offline": 100 * 8 * 2e9 / 1.979e15,
+        # 2 steps x the bound of a batch of 4 over the conv's 170 us
+        "conv_roofline.offline": 100 * 2 * 8e-5 / 170e-6,
+        # 388 us of device work less the conv and the H2D copy, a step
+        "torch_ops_ms.offline": (388 - 170 - 8) / 2e3,
+        "h2d_ms.offline": 8 / 2e3,
+        # the stream sync and the plain copy
+        "host_syncs.offline": 1.0,
+        "device_idle.offline": 100 * (1 - 388 / 1000),
+    }
+    for name, value in want.items():
+        assert spec.reader(name)(run) == pytest.approx(value), name
 
 
 def test_traced_cpu_run_counts_the_spans(tiny_root, one_thread):

@@ -1,4 +1,5 @@
-"""Reading a profiler trace, on a small synthetic chrome trace."""
+"""Reading a profiler trace, on a small synthetic chrome trace, with and
+without the program's spans in it."""
 
 import json
 
@@ -28,11 +29,23 @@ EVENTS = [
     _x("late kernel", "kernel", 2000, 10),              # outside the span
     {"ph": "i", "name": "instant", "ts": 500},
 ]
+# the same with the program's spans around its ops, and the device-side
+# copy of a span, which is no device work
+WITH_SPANS = EVENTS + [
+    _x("ayq", "user_annotation", 100, 900),
+    _x("ayq.forward", "user_annotation", 100, 350),
+    _x("ayq.forward.conv.Conv_P1", "user_annotation", 100, 90),
+    _x("ayq.nms", "user_annotation", 450, 500),
+    _x("ayq.nms.sweep", "user_annotation", 450, 160),
+    _x("ayq.forward", "gpu_user_annotation", 120, 280, tid=7)]
 
 
-def test_summary_of_a_synthetic_trace(tmp_path):
+@pytest.mark.parametrize("events", (EVENTS, WITH_SPANS),
+                         ids=("plain", "with_spans"))
+def test_summary_of_a_synthetic_trace(tmp_path, events):
+    """Every reading but the spans' is the same with spans in the trace."""
     p = tmp_path / "t.json"
-    p.write_text(json.dumps({"traceEvents": EVENTS}))
+    p.write_text(json.dumps({"traceEvents": events}))
     s = trace.summarize(trace.load_events(str(p)), "benchmark.profiled")
     assert s.span_s == pytest.approx(1000e-6)
     # busy: [120, 400] + [600, 650] + [950, 1100] = 280 + 50 + 150
@@ -49,6 +62,39 @@ def test_summary_of_a_synthetic_trace(tmp_path):
          "aten::copy_": 300e-6})
     top = s.top(s.idle_by_host_op, 2)
     assert [t[0] for t in top] == ["aten::copy_", "cudaStreamSynchronize"]
+
+
+OLD_FIELDS = ("span_s", "busy_s", "device_s_by_name", "syncs",
+              "idle_by_host_op")
+
+
+@pytest.mark.parametrize("annotation", ("benchmark.profiled", None))
+def test_spans_leave_every_trace_reading_as_it_was(annotation):
+    """Each field the summary had before it carried the spans reads the
+    same with spans in the trace, in the annotated window and without
+    one."""
+    before = trace.summarize(EVENTS, annotation)
+    after = trace.summarize(WITH_SPANS, annotation)
+    for field in OLD_FIELDS:
+        assert getattr(after, field) == getattr(before, field), field
+    assert before.device_s_by_span == {trace.OUTSIDE: before.device_s_by_name}
+
+
+@pytest.mark.parametrize("annotation,lo,hi", (
+    ("benchmark.profiled", 100, 1100), (None, 120, 2010)))
+def test_summary_carries_the_spans_of_its_window(annotation, lo, hi):
+    """The span fields are trace.attribute's over the window the other
+    fields read: the annotation's, or the device events' without one."""
+    s = trace.summarize(WITH_SPANS, annotation)
+    assert s.span_s == pytest.approx((hi - lo) / 1e6)
+    sp = trace.attribute(WITH_SPANS, lo, hi)
+    for field, value in sp.items():
+        assert getattr(s, field) == value, field
+    # the item's sync is in no span, the stream sync in the sweep
+    assert s.syncs_by_span == {"ayq.nms.sweep": 1}
+    assert sum(sum(ops.values()) for ops in s.device_s_by_span.values()) \
+        == pytest.approx(sum(s.device_s_by_name.values()))
+    assert sum(s.idle_by_span.values()) == pytest.approx(s.span_s - s.busy_s)
 
 
 def test_union_merges_overlaps():

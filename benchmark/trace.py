@@ -1,11 +1,32 @@
 """Reading a torch.profiler chrome trace: the device's busy time as the union
 of its kernel, copy and set intervals, device time by operation, the host
-calls that block on the device, and the idle gaps of the device by what
-the host was doing meanwhile.
+calls that block on the device, the idle gaps of the device by what
+the host was doing meanwhile, and the same by the program's spans.
 
 Only complete events (``"ph": "X"``) are read. Device events carry the
 categories ``kernel``, ``gpu_memcpy`` and ``gpu_memset``; host events
 ``cpu_op``, ``cuda_runtime``, ``cuda_driver`` and ``user_annotation``.
+
+The program marks its stages with ``torch.profiler.record_function``
+spans named ``ayq``, ``ayq.<stage>``, ``ayq.<stage>.<step>``
+(alpha_yolo_quant_torch/utils/profiling.py SPANS); the dotted name is the
+nesting. In the chrome trace a span is a ``user_annotation`` event on the
+host thread that ran it, and every kernel, copy and set carries the
+``args.correlation`` of the runtime call that launched it. So:
+
+- a device event belongs to the innermost span that encloses, on the same
+  thread, its launching runtime call (a kernel that runs after its span
+  closed still counts to it); one with no such span or launch belongs to
+  ``(outside the program)``;
+- an idle gap of the device belongs, at its midpoint, to the innermost
+  span open then (the program runs a call on one thread), else to
+  ``(outside the program)``;
+- a blocking runtime call (SYNC_CALLS) belongs to the innermost span that
+  encloses it on its thread;
+- a span's instances are counted where they start inside the window.
+
+Times are clipped to the window as the other readings clip them, so the
+device seconds of every span add up to the window's.
 """
 
 from __future__ import annotations
@@ -17,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 DEVICE_CATS = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
 HOST_CATS = frozenset({"cpu_op", "cuda_runtime", "cuda_driver"})
+LAUNCH_CATS = frozenset({"cuda_runtime", "cuda_driver"})
 # CUDA runtime and driver calls that return only once the device has
 # reached them: the synchronizes, and the plain (not Async) copies
 SYNC_CALLS = frozenset({
@@ -25,6 +47,8 @@ SYNC_CALLS = frozenset({
     "cuStreamSynchronize", "cuCtxSynchronize", "cuEventSynchronize",
     "cuMemcpyDtoH_v2", "cuMemcpyHtoD_v2"})
 IDLE_NOTHING = "(between host ops)"
+PROGRAM = "ayq"
+OUTSIDE = "(outside the program)"
 
 
 @dataclasses.dataclass
@@ -36,6 +60,11 @@ class Summary:
     device_s_by_name: Dict[str, float]  # summed durations per operation
     syncs: int                         # blocking host calls
     idle_by_host_op: Dict[str, float]  # device idle, by the host's op
+    # the program's spans in the same window (attribute)
+    device_s_by_span: Dict[str, Dict[str, float]]  # span -> op -> self
+    idle_by_span: Dict[str, float]     # device idle, by the host's span
+    span_counts: Dict[str, int]        # instances starting in the window
+    syncs_by_span: Dict[str, int]      # blocking runtime calls, by span
 
     def device_s(self, names) -> float:
         """Device seconds of the operations whose name contains any of
@@ -86,31 +115,33 @@ def summarize(events: List[dict], annotation: Optional[str] = None
         lo = min(float(e["ts"]) for e in dev)
         hi = max(float(e["ts"]) + float(e["dur"]) for e in dev)
     by_name: Dict[str, float] = defaultdict(float)
-    spans = []
+    intervals = []
     for e in dev:
         a, b = _clip(float(e["ts"]), float(e["ts"]) + float(e["dur"]), lo, hi)
         if b > a:
-            spans.append((a, b))
+            intervals.append((a, b))
             by_name[e["name"]] += (b - a) / 1e6
-    busy = union(spans)
+    busy = union(intervals)
     syncs = sum(1 for e in host if e["name"] in SYNC_CALLS
                 and lo <= float(e["ts"]) < hi)
     idle: Dict[str, float] = defaultdict(float)
     edges = [lo] + [x for ab in busy for x in ab] + [hi]
     gaps = [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
-    for (a, b), name in zip(gaps, _host_ops_at(host, [(a + b) / 2
-                                                     for a, b in gaps])):
+    for (a, b), name in zip(gaps, _innermost(
+            host, [(a + b) / 2 for a, b in gaps], IDLE_NOTHING)):
         idle[name] += (b - a) / 1e6
     return Summary(span_s=(hi - lo) / 1e6,
                    busy_s=sum(b - a for a, b in busy) / 1e6,
                    device_s_by_name=dict(by_name), syncs=syncs,
-                   idle_by_host_op=dict(idle))
+                   idle_by_host_op=dict(idle), **attribute(events, lo, hi))
 
 
-def _host_ops_at(host: List[dict], times: List[float]) -> List[str]:
-    """For each of the sorted ``times``, the innermost (shortest) host
-    event running then, by a sweep over the events in order of start."""
-    order = sorted(host, key=lambda e: float(e["ts"]))
+def _innermost(events: List[dict], times: List[float],
+               default: str) -> List[str]:
+    """For each of the sorted ``times``, the name of the innermost
+    (shortest) of ``events`` running then, else ``default``, by a sweep
+    over the events in order of start."""
+    order = sorted(events, key=lambda e: float(e["ts"]))
     active: List[dict] = []
     names, i = [], 0
     for t in times:
@@ -119,5 +150,72 @@ def _host_ops_at(host: List[dict], times: List[float]) -> List[str]:
             i += 1
         active = [e for e in active if float(e["ts"]) + float(e["dur"]) > t]
         best = min(active, key=lambda e: float(e["dur"]), default=None)
-        names.append(best["name"] if best is not None else IDLE_NOTHING)
+        names.append(best["name"] if best is not None else default)
     return names
+
+
+def is_span(name: str) -> bool:
+    return name == PROGRAM or name.startswith(PROGRAM + ".")
+
+
+def _thread(e: dict):
+    return e.get("pid"), e.get("tid")
+
+
+def attribute(events: List[dict], lo: float, hi: float) -> Dict[str, dict]:
+    """Summary's span fields in the window [lo, hi) (trace microseconds):
+    device time, idle time, instances and blocking calls of the program's
+    spans."""
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and is_span(e.get("name", ""))]
+    by_thread: Dict[tuple, List[dict]] = defaultdict(list)
+    for e in spans:
+        by_thread[_thread(e)].append(e)
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in LAUNCH_CATS
+                and "correlation" in e.get("args", {})}
+    device: Dict[str, Dict[str, float]] = defaultdict(
+        lambda: defaultdict(float))
+    queries: Dict[tuple, List[Tuple[float, str, float]]] = defaultdict(list)
+    busy = []
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        a, b = _clip(float(e["ts"]), float(e["ts"]) + float(e["dur"]), lo, hi)
+        if b <= a:
+            continue
+        busy.append((a, b))
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        if launch is None:
+            device[OUTSIDE][e["name"]] += (b - a) / 1e6
+        else:
+            queries[_thread(launch)].append(
+                (float(launch["ts"]), e["name"], (b - a) / 1e6))
+    for thread, qs in queries.items():
+        qs.sort()
+        for span, (_, op, s) in zip(_innermost(
+                by_thread.get(thread, []), [q[0] for q in qs], OUTSIDE), qs):
+            device[span][op] += s
+    edges = [lo] + [x for ab in union(busy) for x in ab] + [hi]
+    gaps = [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
+    idle: Dict[str, float] = defaultdict(float)
+    for (a, b), span in zip(gaps, _innermost(
+            spans, [(a + b) / 2 for a, b in gaps], OUTSIDE)):
+        idle[span] += (b - a) / 1e6
+    counts: Dict[str, int] = defaultdict(int)
+    for e in spans:
+        if lo <= float(e["ts"]) < hi:
+            counts[e["name"]] += 1
+    calls: Dict[tuple, List[float]] = defaultdict(list)
+    for e in events:
+        if (e.get("cat") in LAUNCH_CATS and e["name"] in SYNC_CALLS
+                and lo <= float(e["ts"]) < hi):
+            calls[_thread(e)].append(float(e["ts"]))
+    syncs: Dict[str, int] = defaultdict(int)
+    for thread, ts in calls.items():
+        for span in _innermost(by_thread.get(thread, []), sorted(ts),
+                               OUTSIDE):
+            syncs[span] += 1
+    return {"device_s_by_span": {k: dict(v) for k, v in device.items()},
+            "idle_by_span": dict(idle), "span_counts": dict(counts),
+            "syncs_by_span": dict(syncs)}
