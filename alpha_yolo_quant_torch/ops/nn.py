@@ -34,12 +34,14 @@ def maxpool2d(x, kernel: int = 5, stride: int = 1, padding: int = 2,
 
 
 def upsample_nearest(x, factor: int = 2, nhwc: bool = False):
-    """Nearest upsample: repeat every pixel factor x factor times."""
+    """Nearest upsample: repeat every pixel factor x factor times. NHWC
+    output is contiguous, as the glue kernels take it (on a 1x1 map the
+    reshape alone would give a view with a zero stride)."""
     if nhwc:
         b, h, w, c = x.shape
         return (x[:, :, None, :, None, :]
                 .expand(b, h, factor, w, factor, c)
-                .reshape(b, h * factor, w * factor, c))
+                .reshape(b, h * factor, w * factor, c).contiguous())
     b, c, h, w = x.shape
     return (x[:, :, :, None, :, None]
             .expand(b, c, h, factor, w, factor)

@@ -20,16 +20,18 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("conv1x1", "conv3x3", "sigma_probe", "postconv", "packed_conv")
+SOURCES = ("conv1x1", "conv3x3", "sigma_probe", "postconv", "packed_conv",
+           "glue")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U = ctypes.c_uint
 _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+_PL = ctypes.POINTER(ctypes.c_longlong)
 # C signatures (runtime/csrc/*.cu): every device pointer and the stream as
-# c_void_p; host arrays (the slab conv's slabs and launch plan) as pointer
-# types
+# c_void_p; host arrays (the slab conv's slabs and launch plan, the glue
+# kernel's parts) as pointer types
 ARGTYPES = {
     "ayq_conv1x1": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
                     _I, _I, _I, _I, _I, _I, _P],
@@ -41,6 +43,7 @@ ARGTYPES = {
     "ayq_packed_conv": [_PP, _PI, _I, _PI, _I, _PI, _I, _PI, _I, _PI, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
                         _I, _I, _I, _U, _I, _P],
+    "ayq_requant_combine": [_I, _PP, _PL, _PI, _I, _I, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,5 @@
-// Integer epilogue shared by the Hopper conv kernels and the sigma probe.
+// Integer epilogue shared by the Hopper conv kernels, the sigma probe and the
+// glue kernel (glue.cu).
 //
 // The SiLU chain of one output element (reference semantics,
 // quantize/primitives.requantize_np):
@@ -33,11 +34,20 @@ __device__ __forceinline__ int sigma_lookup(const int* s_tab, int dom, int lo) {
   return s_tab[dom - lo];
 }
 
-__device__ __forceinline__ long long requant(long long x, long long m, int shift,
-                                             int qmax) {
-  long long q = (m * x) >> (shift - 1);
+// The requant in the integer type T. T = long long holds for every operand
+// the kernels take; T = int is the same formula and gives the same value
+// wherever the caller has shown |m * x| < 2^31, since every later step is
+// smaller (the glue kernel's wrapper checks that before it launches).
+template <typename T>
+__device__ __forceinline__ T requant_as(T x, T m, int shift, int qmax) {
+  T q = (m * x) >> (shift - 1);
   q = (q >> 1) + (q & 1);
   return q < -qmax ? -qmax : (q > qmax ? qmax : q);
+}
+
+__device__ __forceinline__ long long requant(long long x, long long m, int shift,
+                                             int qmax) {
+  return requant_as<long long>(x, m, shift, qmax);
 }
 
 __device__ __forceinline__ int silu_epilogue(int acc, int r1, int s1, int r2, int s2,

@@ -17,12 +17,13 @@ contiguous per output channel (pack_weights).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from alpha_yolo_quant_torch.ops.intmath import requantize
+from alpha_yolo_quant_torch.ops.intmath import requantize, requantize_small
 from alpha_yolo_quant_torch.ops.lut import DeviceLut
 from alpha_yolo_quant_torch.ops.nn import conv2d_int_exact
 
@@ -30,13 +31,15 @@ from alpha_yolo_quant_torch.ops.nn import conv2d_int_exact
 # kernel itself counts, never a plain-version call
 LAUNCHES: Dict[str, int] = {"conv1x1": 0, "conv3x3": 0, "sigma_probe": 0,
                             "postconv_silu": 0, "postconv_plain": 0,
-                            "packed_conv": 0}
+                            "packed_conv": 0, "glue_add": 0,
+                            "glue_concat": 0}
 
 K_TILE = 64        # conv_igemm.cuh BK, the depth of one pipeline stage:
 #                    packed weight depth is zero-padded to a multiple of it
 MAX_LUT = 256      # epilogue.cuh kMaxLut: the longest sigmoid table
 CHUNK = 16         # channels per cp.async copy (conv_igemm.cuh): inputs
 #                    with Cin % CHUNK == 0 are read 16 bytes at a time
+MAX_SOURCES = 8    # glue.cu kGlueParts: the most sources of one concat
 _ACT_TYPES = (torch.int8, torch.int16)
 
 
@@ -134,6 +137,30 @@ def postconv_silu_plain(hi, lo, bias, r1, s1, r2, s2, sig: DeviceLut,
 
 def postconv_plain_plain(hi, lo, bias, axis: int = 1) -> torch.Tensor:
     return _postconv_acc_plain(hi, lo, bias, axis).to(torch.int32)
+
+
+def residual_add_plain(src: torch.Tensor, base: torch.Tensor, r: int, s: int,
+                       qmax: int, bound: Optional[int],
+                       dtype: torch.dtype) -> torch.Tensor:
+    """requant(src) + base, clipped to +-bound if a bound is given, then
+    cast (two's-complement truncation) to dtype."""
+    out = requantize_small(src, r, s, qmax) + base.to(torch.int32)
+    if bound is not None:
+        out = torch.clamp(out, -bound, bound)
+    return out.to(dtype)
+
+
+def concat_plain(srcs: Sequence[torch.Tensor],
+                 requants: Sequence[Optional[Tuple[int, int]]], qmax: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Each source requantized where it has an (r, s), cast to dtype, then
+    concatenated along the channels (NHWC)."""
+    parts = []
+    for t, rq in zip(srcs, requants):
+        if rq is not None:
+            t = requantize_small(t, rq[0], rq[1], qmax)
+        parts.append(t.to(dtype))
+    return torch.cat(parts, dim=3)
 
 
 # --------------------------------------------------------------- kernels
@@ -301,6 +328,121 @@ def postconv_plain(hi: torch.Tensor, lo: torch.Tensor, bias,
         return postconv_plain_plain(hi, lo, bias, axis)
     return _launch_postconv("postconv_plain", hi, lo, (bias,), None, 127,
                             axis)
+
+
+def _check_requant(name: str, t: torch.Tensor, rq) -> None:
+    """The kernel requantizes in 32 bits: exact, and equal to the plain
+    version, while |r * x| < 2^31 for every value x of t's dtype."""
+    if rq is None:
+        return
+    r, s = rq
+    amax = 2 ** (8 * t.element_size() - 1)
+    if not 1 <= s <= 32 or abs(r) * amax >= 2 ** 31:
+        raise ValueError(f"{name}: requant (r={r}, s={s}) of {t.dtype} "
+                         "needs 1 <= s <= 32 and |r| * 2^(bits-1) < 2^31")
+
+
+def _check_glue(name: str, srcs: Sequence[torch.Tensor],
+                requants: Sequence, dtype: torch.dtype) -> None:
+    if dtype not in _ACT_TYPES:
+        raise TypeError(f"{name}: output must be int8 or int16, got {dtype}")
+    lead = srcs[0].shape[:3]
+    for t, rq in zip(srcs, requants):
+        if t.dtype not in _ACT_TYPES:
+            raise TypeError(f"{name}: sources must be int8 or int16, got "
+                            f"{t.dtype}")
+        if t.dim() != 4 or not t.is_contiguous() or t.shape[:3] != lead:
+            raise ValueError(f"{name}: need contiguous NHWC sources of one "
+                             f"(B, H, W), got {tuple(t.shape)}")
+        if t.device != srcs[0].device:
+            raise ValueError(f"{name}: sources on {t.device} and "
+                             f"{srcs[0].device}")
+        _check_requant(name, t, rq)
+
+
+def _launch_glue(name: str, parts, out: torch.Tensor, qmax: int,
+                 bound: Optional[int]) -> torch.Tensor:
+    """One launch over the non-empty ``parts``: (src, base or None, rows,
+    cols, out element offset, out row stride, (r, s) or None) each. No
+    part holding an element: no launch, nothing counted."""
+    from alpha_yolo_quant_torch.runtime._build import kernel
+
+    parts = [p for p in parts if p[2] * p[3] > 0]
+    if not parts:
+        return out
+    n = len(parts)
+    ptrs = (ctypes.c_void_p * (3 * n))()
+    rows = (ctypes.c_longlong * n)()
+    meta = (ctypes.c_int * (7 * n))()
+    for i, (src, base, nrow, cols, out_off, stride, rq) in enumerate(parts):
+        ptrs[3 * i] = src.data_ptr()
+        ptrs[3 * i + 1] = None if base is None else base.data_ptr()
+        ptrs[3 * i + 2] = out.data_ptr() + out_off * out.element_size()
+        rows[i] = nrow
+        r, s = rq if rq is not None else (0, 1)
+        meta[7 * i:7 * i + 7] = [
+            cols, stride, int(src.dtype == torch.int16),
+            int(base is not None and base.dtype == torch.int16),
+            int(rq is not None), r, s]
+    rc = kernel("glue", "ayq_requant_combine")(
+        n, ptrs, rows, meta, int(out.dtype == torch.int16), qmax,
+        int(bound is not None), 0 if bound is None else bound,
+        _stream(out))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def residual_add(src: torch.Tensor, base: torch.Tensor, r: int, s: int,
+                 qmax: int, bound: Optional[int],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """A ResidualAddNode: requant(src, r, s) + base, clipped to +-bound if
+    given, cast to dtype, as one launch of csrc/glue.cu (the plain version
+    on a CPU tensor)."""
+    if _on_cpu(src):
+        return residual_add_plain(src, base, r, s, qmax, bound, dtype)
+    return _launch_add(src, base, r, s, qmax, bound, dtype)
+
+
+def _launch_add(src, base, r, s, qmax, bound, dtype) -> torch.Tensor:
+    _check_glue("glue_add", [src, base], [(r, s), None], dtype)
+    if base.shape != src.shape:
+        raise ValueError(f"glue_add: base {tuple(base.shape)} and source "
+                         f"{tuple(src.shape)} differ")
+    if bound is not None and not 0 <= bound < 2 ** 31:
+        raise ValueError(f"glue_add: clip bound {bound} out of int32")
+    out = torch.empty(src.shape, dtype=dtype, device=src.device)
+    b, h, w, c = src.shape
+    return _launch_glue("glue_add", [(src, base, b * h * w, c, 0, c, (r, s))],
+                        out, qmax, bound)
+
+
+def concat(srcs: Sequence[torch.Tensor],
+           requants: Sequence[Optional[Tuple[int, int]]], qmax: int,
+           dtype: torch.dtype) -> torch.Tensor:
+    """A ConcatNode: each NHWC source, requantized where it has an (r, s),
+    cast to dtype and written at its channel offset, all sources in one
+    launch of csrc/glue.cu (the plain version on a CPU tensor)."""
+    if _on_cpu(srcs[0]):
+        return concat_plain(srcs, requants, qmax, dtype)
+    return _launch_concat(srcs, requants, qmax, dtype)
+
+
+def _launch_concat(srcs, requants, qmax, dtype) -> torch.Tensor:
+    if not 1 <= len(srcs) <= MAX_SOURCES or len(requants) != len(srcs):
+        raise ValueError(f"glue_concat: {len(srcs)} sources and "
+                         f"{len(requants)} requants; the kernel takes 1 to "
+                         f"{MAX_SOURCES} sources, a requant or None each")
+    _check_glue("glue_concat", srcs, requants, dtype)
+    b, h, w = srcs[0].shape[:3]
+    ctot = sum(t.shape[3] for t in srcs)
+    out = torch.empty((b, h, w, ctot), dtype=dtype, device=srcs[0].device)
+    parts, off = [], 0
+    for t, rq in zip(srcs, requants):
+        parts.append((t, None, b * h * w, t.shape[3], off, ctot, rq))
+        off += t.shape[3]
+    return _launch_glue("glue_concat", parts, out, qmax, None)
 
 
 def sigma_probe(sig: DeviceLut) -> torch.Tensor:

@@ -5,9 +5,10 @@ Both packages consume the same host-side numpy ``QuantizedModel``;
 ``device_plan`` carries its integers onto a torch device, so the two
 runtimes compute the same function. Activations live in NHWC, int8, or
 int16 on the wide edges (``edge_amax_int > 127``); public outputs are
-NCHW like the JAX function's. Every conv runs through the Hopper kernel
-wrappers (runtime/fused_ops.py, runtime/packed_conv.py): the kernels on a
-CUDA device, their plain versions on the CPU.
+NCHW like the JAX function's. Every conv, residual add and concat runs
+through the Hopper kernel wrappers (runtime/fused_ops.py,
+runtime/packed_conv.py): the kernels on a CUDA device, their plain versions
+on the CPU. The packed engine's slab ops keep their own torch code.
 
 Engines (``int_forward(engine=...)``), all bit-identical:
   fused   every conv on the implicit-GEMM kernels conv1x1/conv3x3 with
@@ -245,26 +246,25 @@ def _run_node(model: QuantizedModel, plan: Dict, idx: int, node,
         env[node.dst2] = t[..., h:].contiguous()
     elif isinstance(node, ResidualAddNode):
         r, s = plan["requants"][(idx, node.src)]
-        req = requantize_small(env[node.src], r, s, qmax)
+        src = env[node.src]
         if extra is not None:
-            extra[f"{node.label}:rescale"] = _nchw(req)
-        out = req + env[node.base].to(torch.int32)
-        bound = model.clip_after_residual.get(idx)
-        if bound is not None:
-            out = torch.clamp(out, -bound, bound)
-        env[node.dst] = out.to(_store_dtype(model, node.dst))
+            extra[f"{node.label}:rescale"] = _nchw(
+                requantize_small(src, r, s, qmax))
+        add = (fused_ops.residual_add_plain if plain
+               else fused_ops.residual_add)
+        env[node.dst] = add(src, env[node.base], r, s, qmax,
+                            model.clip_after_residual.get(idx),
+                            _store_dtype(model, node.dst))
     elif isinstance(node, ConcatNode):
-        dt = _store_dtype(model, node.dst)
-        parts = []
-        for e in node.srcs:
-            t = env[e]
-            if (idx, e) in plan["requants"]:
-                r, s = plan["requants"][(idx, e)]
-                t = requantize_small(t, r, s, qmax)
-                if extra is not None:
-                    extra[f"{node.label}:{e}:requant"] = _nchw(t)
-            parts.append(t.to(dt))
-        env[node.dst] = torch.cat(parts, dim=3)
+        srcs = [env[e] for e in node.srcs]
+        reqs = [plan["requants"].get((idx, e)) for e in node.srcs]
+        if extra is not None:
+            for e, t, rq in zip(node.srcs, srcs, reqs):
+                if rq is not None:
+                    extra[f"{node.label}:{e}:requant"] = _nchw(
+                        requantize_small(t, rq[0], rq[1], qmax))
+        cat = fused_ops.concat_plain if plain else fused_ops.concat
+        env[node.dst] = cat(srcs, reqs, qmax, _store_dtype(model, node.dst))
     elif isinstance(node, MaxPoolNode):
         env[node.dst] = maxpool2d(env[node.src], node.kernel,
                                   node.stride, node.padding, nhwc=True)
@@ -304,15 +304,16 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q: torch.Tensor,
 
     engine: "fused", "pallas" or "packed" (module docstring).
 
-    plain=True runs every conv through the kernels' plain PyTorch version
-    on whatever device the input is on: the reference path that a kernel
-    run on the card is held against. It and keep_env run on the fused
-    engine only.
+    plain=True runs every conv, residual add and concat through the
+    kernels' plain PyTorch versions on whatever device the input is on:
+    the reference path that a kernel run on the card is held against. It
+    and keep_env run on the fused engine only.
 
     keep_env adds ``'__env__'``: every edge (NCHW) plus the golden
     oracle's intermediates ``<conv>:sigdom``, ``<label>:rescale`` and
     ``<label>:<edge>:requant``. The edges come from the same kernels as
-    without it; the sigdom values are recomputed by the plain conv.
+    without it; the sigdom values are recomputed by the plain conv, the
+    rescale and requant values by ``requantize_small``.
 
     Segmented execution (the pipeline-parallel seam, parallel/pipeline.py):
     node_range=(lo, hi) with env_in (the segment's live input edges, NCHW;

@@ -50,8 +50,12 @@ SPANS = {
     "ayq.forward.conv.": "one conv layer, by ConvNode.name: the kernel "
                          "call and its wrapper",
     "ayq.forward.split": "a SplitNode's two channel halves",
-    "ayq.forward.add": "a ResidualAddNode: requant, add, clamp, cast",
-    "ayq.forward.concat": "a ConcatNode: requants, casts, cat",
+    "ayq.forward.add": "a ResidualAddNode: requant, add, clamp and cast "
+                       "as one requant_combine_kernel launch "
+                       "(csrc/glue.cu, fused_ops.residual_add)",
+    "ayq.forward.concat": "a ConcatNode: every source's requant, cast and "
+                          "channel offset as one requant_combine_kernel "
+                          "launch (csrc/glue.cu, fused_ops.concat)",
     "ayq.forward.maxpool": "a MaxPoolNode",
     "ayq.forward.upsample": "an UpsampleNode",
     "ayq.forward.slab": "one SlabExec.run of the packed engine's slab ops",

@@ -20,10 +20,17 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      whole pallas forward's epilogues), the banded slab conv on seven
      convs of the 640 model's slab plan at B=8 and B=128, with
      torch._int_mm on the gathered product of its taps as the yardstick;
+     the glue kernel (residual add, concat) on every add and concat node
+     of yolov8n and yolov8m at B=128 640 px and yolov8m-p6 at B=32 1280 px
+     (the benchmark cells), one launch a call, timed summed over each
+     model's nodes beside the same kernel built with its requant in int64,
+     the plain torch chain and the byte bound;
   4. serve three coalesced requests (4 uint8 + 8 f32 + 4 f32 images)
      through build_int_pipeline on each engine (fused, pallas, packed),
      with the launch counts set to 0 just before each and read just after:
-     every conv must go through the engine's kernels, and the detections
+     every conv must go through the engine's kernels, every add and concat
+     outside the packed engine's slabs through the glue kernel, and the
+     detections
      must equal the plain path's bit for bit; one image's head edges must
      equal the numpy int64 oracle golden_forward, and its decoded planes
      golden's decode_full_quant_np;
@@ -79,7 +86,8 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      rtol 1e-4; prints the backends, world sizes and seconds;
 then print the kernels line (every kernel with its launches on its path,
 error, times and bound; sigma_probe also with the launch floor, an empty
-kernel's device time) and, last, the device line.
+kernel's device time; glue_add and glue_concat, with the fused engine's
+launches, also with the int64 build's ms) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -112,12 +120,20 @@ KERNELS = {   # name -> (source in the repo, TPU kernel it replaces)
                        f"{_PALLAS}:244"),
     "packed_conv": ("alpha_yolo_quant_torch/runtime/csrc/packed_conv.cu",
                     "alpha_yolo_quant_tpu/runtime/packed_conv.py:299"),
+    # no TPU kernel: the JAX interpreter leaves adds and concats to XLA
+    "glue_add": ("alpha_yolo_quant_torch/runtime/csrc/glue.cu",
+                 "alpha_yolo_quant_tpu/runtime/interpreter.py:544 (XLA)"),
+    "glue_concat": ("alpha_yolo_quant_torch/runtime/csrc/glue.cu",
+                    "alpha_yolo_quant_tpu/runtime/interpreter.py:564 (XLA)"),
 }
+_GLUE = ("glue_add", "glue_concat")
 ENGINE_KERNELS = {   # kernels each serving engine launches
-    "fused": ("conv1x1", "conv3x3", "sigma_probe"),
-    "pallas": ("postconv_silu", "postconv_plain"),
-    "packed": ("packed_conv",),
+    "fused": ("conv1x1", "conv3x3", "sigma_probe", *_GLUE),
+    "pallas": ("postconv_silu", "postconv_plain", *_GLUE),
+    "packed": ("packed_conv", *_GLUE),
 }
+GLUE_CELLS = (   # the benchmark cells' models, image sizes and batches
+    ("yolov8n", 640, 128), ("yolov8m", 640, 128), ("yolov8m-p6", 1280, 32))
 
 
 def log(msg: str) -> None:
@@ -535,19 +551,158 @@ def check_kernels(model, plan, batch: int, reps: int = 10):
     postconv_forward_bound(graph)
     for b in (batch, 128):
         check_packed_kernel(model, plan, res, b, reps)
+    check_glue_kernels(res, reps)
     return res
 
 
-def expected_launches(model, engine: str, n_slab: int) -> dict:
-    """The launches one forward must make on each engine."""
+def glue_int64_lib():
+    """csrc/glue.cu built with its requant in int64 (AYQ_GLUE_REQUANT64),
+    epilogue.cuh's formula: the yardstick for the kernel's 32-bit one."""
+    import ctypes
+
+    from alpha_yolo_quant_torch.runtime import _build
+
+    so = _build.BUILD_DIR / "libayq_glue_int64.so"
+    out = subprocess.run(
+        [_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-DAYQ_GLUE_REQUANT64",
+         "-o", str(so), str(_build.CSRC / "glue.cu")],
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for glue.cu in int64:\n"
+                           f"{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(str(so))
+    lib.ayq_requant_combine.argtypes = _build.ARGTYPES["ayq_requant_combine"]
+    lib.ayq_requant_combine.restype = ctypes.c_int
+    return lib
+
+
+def glue_values(chw, dtype, batch: int, gen):
+    """A random NHWC edge: int8 over its whole range; int16 over +-3*127
+    with +-2^15 first (beyond any proof: the kernel must still wrap as the
+    plain version does)."""
+    import torch
+
+    c, h, w = chw
+    amax = 381 if dtype == torch.int16 else 128
+    x = torch.randint(-amax, amax + (dtype == torch.int16), (batch, h, w, c),
+                      dtype=dtype, device="cuda", generator=gen)
+    if dtype == torch.int16:
+        x.view(-1)[:2] = torch.tensor([32767, -32768], dtype=dtype)
+    return x
+
+
+def check_glue_kernels(res, reps: int):
+    """Phase 3e: requant_combine_kernel (fused_ops.residual_add / concat)
+    against residual_add_plain / concat_plain on every add and concat node
+    of each GLUE_CELLS model at its cell's size and batch, in the int32
+    build and the int64 one, one launch a call, max|diff| 0; then, summed
+    over a model's nodes of each kind, device ms of both builds and of the
+    plain chain, and the byte bound (every source read and the output
+    written once at 3.35 TB/s). The requants, clips and dtypes are those of
+    the model calibrated at 64 px; only the shapes follow the size."""
+    import torch
+
+    from alpha_yolo_quant_torch.engine_profile import (
+        bound, build_model, device_ms, nbytes,
+    )
+    from alpha_yolo_quant_torch.models.graph import (
+        ConcatNode, ResidualAddNode, edge_shapes,
+    )
+    from alpha_yolo_quant_torch.parallel.pipeline import _edge_dtypes
+    from alpha_yolo_quant_torch.runtime import _build, fused_ops
+    from alpha_yolo_quant_torch.runtime.interpreter import _store_dtype
+
+    libs = {"ms": _build.build()["glue"], "int64_ms": glue_int64_lib()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    try:
+        for name, size, batch in GLUE_CELLS:
+            model = build_model(64, "cuda", model=name)
+            shapes, dts = edge_shapes(model.graph, size), _edge_dtypes(model)
+            rq = {k: (int(v.rescale), int(v.shift))
+                  for k, v in model.requants.items()}
+            qmax = model.cfg.qmax
+            sums: dict = {}
+            for idx, node in enumerate(model.graph.nodes):
+                if isinstance(node, ResidualAddNode):
+                    kind, edges = "glue_add", (node.src, node.base)
+                elif isinstance(node, ConcatNode):
+                    kind, edges = "glue_concat", tuple(node.srcs)
+                else:
+                    continue
+                ts = {e: glue_values(shapes[e], dts[e], batch, gen)
+                      for e in edges}
+                dt = _store_dtype(model, node.dst)
+                if kind == "glue_add":
+                    args = (ts[node.src], ts[node.base],
+                            *rq[(idx, node.src)], qmax,
+                            model.clip_after_residual.get(idx), dt)
+                    fn = fused_ops.residual_add
+                    plain = fused_ops.residual_add_plain
+                else:
+                    args = ([ts[e] for e in node.srcs],
+                            [rq.get((idx, e)) for e in node.srcs], qmax, dt)
+                    fn, plain = fused_ops.concat, fused_ops.concat_plain
+                want = plain(*args)
+                s = sums.setdefault(kind, dict(n=0, bytes=0, ms=0.0,
+                                               int64_ms=0.0, plain_ms=0.0,
+                                               err=0))
+                for field, lib in libs.items():
+                    _build._LIBS["glue"] = lib
+                    before = fused_ops.LAUNCHES[kind]
+                    s["err"] = max(s["err"], max_err(
+                        fn(*args), want, f"{kind} [{field}] {name} "
+                        f"{node.dst}"))
+                    if fused_ops.LAUNCHES[kind] != before + 1:
+                        raise AssertionError(f"{kind} {name} {node.dst}: "
+                                             "not one launch a call")
+                    s[field] += device_ms(lambda: fn(*args), reps)
+                _build._LIBS["glue"] = libs["ms"]
+                s["plain_ms"] += device_ms(lambda: plain(*args),
+                                           max(2, reps // 5))
+                s["n"] += 1
+                s["bytes"] += nbytes(*ts.values(), want)
+                del ts, args, want
+            torch.cuda.empty_cache()
+            for kind, s in sums.items():
+                bound_ms, bound_by = bound(s["bytes"], 0)
+                shape = (f"{name} B={batch} {size}px, {s['n']} nodes "
+                         "summed")
+                log(f"kernel {kind} [{shape}]: max_abs_err={s['err']} "
+                    f"ms={s['ms']:.4f} int64_ms={s['int64_ms']:.4f} "
+                    f"plain_ms={s['plain_ms']:.4f} bound_ms={bound_ms:.4f} "
+                    f"({s['bytes']} B; {100 * bound_ms / s['ms']:.1f}% of "
+                    f"bound)")
+                keep_case(res, kind, s["bytes"], max_abs_err=s["err"],
+                          ms=s["ms"], int64_ms=s["int64_ms"],
+                          plain_ms=s["plain_ms"], bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None, shape=shape)
+    finally:
+        _build._LIBS["glue"] = libs["ms"]
+
+
+def expected_launches(model, engine: str, sp=None) -> dict:
+    """The launches one forward must make on each engine; sp is the packed
+    engine's slab plan, whose nodes run outside the kernels counted here
+    but packed_conv."""
+    from alpha_yolo_quant_torch.models.graph import (
+        ConcatNode, ResidualAddNode,
+    )
+
     convs = model.graph.convs()
     n_silu = sum(1 for n in convs if n.silu)
+    slab = sp.nodes if sp is not None else ()
+    glue = {k: sum(1 for i, n in enumerate(model.graph.nodes)
+                   if isinstance(n, cls) and i not in slab)
+            for k, cls in (("glue_add", ResidualAddNode),
+                           ("glue_concat", ConcatNode))}
     if engine == "pallas":   # two partial convs per conv, then an epilogue
         return {"conv": 2 * len(convs), "postconv_silu": n_silu,
-                "postconv_plain": len(convs) - n_silu}
+                "postconv_plain": len(convs) - n_silu, **glue}
     if engine == "packed":
-        return {"conv": len(convs) - n_slab, "packed_conv": n_slab}
-    return {"conv": len(convs)}
+        return {"conv": len(convs) - sp.n_convs, "packed_conv": sp.n_convs,
+                **glue}
+    return {"conv": len(convs), **glue}
 
 
 def serve(model, device):
@@ -579,8 +734,8 @@ def serve(model, device):
         got = fn(*reqs)
         torch.cuda.synchronize()
         counts = dict(fused_ops.LAUNCHES)
-        n_slab = slab_plan(model, plan).n_convs if engine == "packed" else 0
-        exp = expected_launches(model, engine, n_slab)
+        sp = slab_plan(model, plan) if engine == "packed" else None
+        exp = expected_launches(model, engine, sp)
         seen = {"conv": counts["conv1x1"] + counts["conv3x3"],
                 **{k: counts[k] for k in exp if k != "conv"}}
         log(f"serve [{engine}]: 3 coalesced requests (4 uint8 + 8 f32 + 4 "
@@ -589,7 +744,8 @@ def serve(model, device):
         if seen != exp or min(counts[k] for k in
                               ENGINE_KERNELS[engine]) < 1:
             raise AssertionError(f"{engine}: the serving path did not run "
-                                 f"every conv through its kernels")
+                                 f"every conv, add and concat through its "
+                                 f"kernels")
         total = 0
         for i, ((det, n), (det_p, n_p)) in enumerate(zip(got, want)):
             b = reqs[i].shape[0]
@@ -606,7 +762,8 @@ def serve(model, device):
         log(f"serve [{engine}]: detections equal the plain path (and so "
             f"every other engine) bit for bit ({total} detections over 16 "
             f"images, all finite)")
-        launches.update({k: counts[k] for k in ENGINE_KERNELS[engine]})
+        for k in ENGINE_KERNELS[engine]:   # the glue's: the fused engine's
+            launches.setdefault(k, counts[k])
         plans[engine] = plan
         per_engine[engine] = counts
     return launches, plans, reqs, want, per_engine
@@ -955,8 +1112,8 @@ def artifacts_phase(model, device, card: str, golden_size: int = 64):
             det, n = fn(x)
             torch.cuda.synchronize()
             counts = dict(fused_ops.LAUNCHES)
-            n_slab = slab_plan(m, plan).n_convs if engine == "packed" else 0
-            exp = expected_launches(m, engine, n_slab)
+            sp = slab_plan(m, plan) if engine == "packed" else None
+            exp = expected_launches(m, engine, sp)
             seen = {"conv": counts["conv1x1"] + counts["conv3x3"],
                     **{k: counts[k] for k in exp if k != "conv"}}
             if seen != exp:
@@ -1594,8 +1751,7 @@ def main() -> int:
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], library_ms=r["library_ms"],
              shape=r["shape"],
-             **({"launch_floor_ms": r["launch_floor_ms"]}
-                if "launch_floor_ms" in r else {}))
+             **{f: r[f] for f in ("launch_floor_ms", "int64_ms") if f in r})
         for k, r in kres.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -317,6 +317,124 @@ def _card_model(full_quant=True, model="yolov8n"):
         reduce_stats(collect_stats(graph, params, [calib], "cpu")), cfg)
 
 
+GLUE_MODELS = [("yolov8n", 6, 13), ("yolov8m", 12, 13),
+               ("yolov8m-p6", 14, 18)]
+
+
+def _glue_values(rng, shape, dtype, device):
+    """int8 over its whole range; int16 over +-3*qmax, then +-2^15 at the
+    front (beyond any proof: the kernel must still wrap as the plain
+    version does)."""
+    if dtype == torch.int8:
+        x = rng.integers(-128, 128, shape)
+    else:
+        x = rng.integers(-381, 382, shape)
+        x.reshape(-1)[:4] = [32767, -32768, 381, -381]
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("name,n_add,n_cat", GLUE_MODELS,
+                         ids=[m[0] for m in GLUE_MODELS])
+def test_glue_kernel_equals_plain_on_every_node(cuda, name, n_add, n_cat):
+    """requant_combine_kernel against residual_add_plain / concat_plain on
+    every add and concat node of the model at 64 px, B=2, the sources in
+    their edges' dtypes and the model's own requants and clip; one launch
+    a call."""
+    from alpha_yolo_quant_torch.models.graph import (
+        ConcatNode, ResidualAddNode, edge_shapes,
+    )
+    from alpha_yolo_quant_torch.parallel.pipeline import _edge_dtypes
+    from alpha_yolo_quant_torch.runtime.interpreter import _store_dtype
+
+    model = _card_model(model=name)
+    shapes, dts = edge_shapes(model.graph, 64), _edge_dtypes(model)
+    rq = {k: (int(v.rescale), int(v.shift))
+          for k, v in model.requants.items()}
+    rng = np.random.default_rng(5)
+
+    def src(e):
+        c, h, w = shapes[e]
+        return _glue_values(rng, (2, h, w, c), dts[e], cuda)
+
+    seen = {"glue_add": 0, "glue_concat": 0}
+    for idx, node in enumerate(model.graph.nodes):
+        if isinstance(node, ResidualAddNode):
+            key = "glue_add"
+            kernel = fused_ops.residual_add
+            plain = fused_ops.residual_add_plain
+            args = (src(node.src), src(node.base), *rq[(idx, node.src)], 127,
+                    model.clip_after_residual.get(idx))
+        elif isinstance(node, ConcatNode):
+            key = "glue_concat"
+            kernel, plain = fused_ops.concat, fused_ops.concat_plain
+            args = ([src(e) for e in node.srcs],
+                    [rq.get((idx, e)) for e in node.srcs], 127)
+        else:
+            continue
+        dt = _store_dtype(model, node.dst)
+        args += (dt,)
+        before = fused_ops.LAUNCHES[key]
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert fused_ops.LAUNCHES[key] == before + 1
+        want = plain(*args)
+        assert got.dtype == want.dtype == dt and torch.equal(got, want), \
+            node.dst
+        seen[key] += 1
+    assert (seen["glue_add"], seen["glue_concat"]) == (n_add, n_cat)
+
+
+@pytest.mark.parametrize("out_dt", [torch.int8, torch.int16],
+                         ids=["out8", "out16"])
+def test_glue_kernel_ragged_widths_equal_plain(cuda, out_dt):
+    """Widths that are no multiple of 16 take the scalar path: a concat of
+    8 + 24 + 3 + 16 channels (the 16 after a ragged offset) and adds of 7
+    and 20 channels, clipped and not. int8 and int16 mixed."""
+    rng = np.random.default_rng(6)
+    srcs = [_glue_values(rng, (2, 5, 3, c), dt, cuda)
+            for c, dt in ((8, torch.int16), (24, torch.int8),
+                          (3, torch.int8), (16, torch.int16))]
+    reqs = [(201, 8), None, (77, 6), (150, 7)]
+    before = fused_ops.LAUNCHES["glue_concat"]
+    got = fused_ops.concat(srcs, reqs, 127, out_dt)
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES["glue_concat"] == before + 1
+    assert torch.equal(got, fused_ops.concat_plain(srcs, reqs, 127, out_dt))
+    for shape, bound in (((1, 3, 5, 7), None), ((1, 3, 5, 7), 127),
+                         ((2, 4, 4, 20), 127)):
+        x = _glue_values(rng, shape, torch.int16, cuda)
+        base = _glue_values(rng, shape, torch.int8, cuda)
+        before = fused_ops.LAUNCHES["glue_add"]
+        got = fused_ops.residual_add(x, base, 231, 8, 127, bound, out_dt)
+        torch.cuda.synchronize()
+        assert fused_ops.LAUNCHES["glue_add"] == before + 1
+        assert torch.equal(got, fused_ops.residual_add_plain(
+            x, base, 231, 8, 127, bound, out_dt))
+
+
+@pytest.mark.parametrize("name,n_add,n_cat", GLUE_MODELS,
+                         ids=[m[0] for m in GLUE_MODELS])
+def test_fused_forward_launches_one_glue_kernel_a_node(cuda, name, n_add,
+                                                       n_cat):
+    """A fused forward on the card launches requant_combine_kernel once per
+    add and concat node (19 / 25 / 32) and gives the CPU forward's head
+    edges bit for bit."""
+    model = _card_model(model=name)
+    x = np.random.default_rng(7).uniform(0, 1, (2, 3, 64, 64)).astype(
+        np.float32)
+    plan = device_plan(model, cuda)
+    x_q = quantize_input(torch.as_tensor(x, device=cuda), 8)
+    fused_ops.reset_counts()
+    outs = int_forward(model, plan, x_q)
+    torch.cuda.synchronize()
+    assert (fused_ops.LAUNCHES["glue_add"],
+            fused_ops.LAUNCHES["glue_concat"]) == (n_add, n_cat)
+    outs_c = int_forward(model, device_plan(model, "cpu"),
+                         quantize_input(torch.as_tensor(x), 8))
+    for role in model.graph.outputs:
+        assert torch.equal(outs[role].cpu(), outs_c[role]), role
+
+
 def test_pipeline_on_card_equals_cpu_and_golden(cuda):
     model = _card_model()
     graph = model.graph
