@@ -41,8 +41,8 @@ metric gets _dp{N} after _co/before _u8 for N > 1 (N = 1 keeps the base
 name). Only rank 0 prints.
 
 Left out of bench.py on purpose: vs_baseline and --check (their numbers
-are TPU ones), and the yolov8n mid-batch pad_batch_to=128 policy (a TPU
-lane choice).
+are TPU ones), and the yolov8n mid-batch padding of the conv stack to a
+batch of 128 (a TPU lane choice).
 """
 
 from __future__ import annotations

@@ -143,7 +143,8 @@ def _rank(rank: int, n: int, graph, params, model) -> dict:
                                             device=dev)
             plan = device_plan(model, dev)
             outs = int_forward(model, plan, quantize_input(
-                torch.as_tensor(x, device=dev), model.cfg.k))
+                torch.as_tensor(x, device=dev), model.cfg.k),
+                head_requant=True)
             want = non_max_suppression(
                 decode_full_quant(model, plan, outs),
                 q_nms_params(model.head.anchor_scale))

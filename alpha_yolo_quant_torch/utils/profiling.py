@@ -62,11 +62,11 @@ SPANS = {
     "ayq.forward.head_requant": "requant_heads: the full-quant head's "
                                 "first requant",
     "ayq.decode": "the decode that runs: decode_select_sparse, "
-                  "decode_full_quant or decode_float",
+                  "decode_serving, decode_full_quant or decode_float",
     "ayq.decode.level.": "one detect level of the serving decode's level "
                          "loop, by level (p3, p4, ...): its DFL, anchors "
-                         "and class max (_decode_serving_per_level), or "
-                         "its class max and flattening "
+                         "and class max (decode_serving), or its class "
+                         "max, anchors and flattening "
                          "(decode_select_sparse)",
     "ayq.nms": "non_max_suppression",
     "ayq.nms.select": "_select_candidates: sort and gather of the top "

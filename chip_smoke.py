@@ -23,8 +23,7 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      the glue kernel (residual add, concat) on every add and concat node
      of yolov8n and yolov8m at B=128 640 px and yolov8m-p6 at B=32 1280 px
      (the benchmark cells), one launch a call, timed summed over each
-     model's nodes beside the same kernel built with its requant in int64,
-     the plain torch chain and the byte bound;
+     model's nodes beside the plain torch chain and the byte bound;
   4. serve three coalesced requests (4 uint8 + 8 f32 + 4 f32 images)
      through build_int_pipeline on each engine (fused, pallas, packed),
      with the launch counts set to 0 just before each and read just after:
@@ -86,8 +85,8 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      rtol 1e-4; prints the backends, world sizes and seconds;
 then print the kernels line (every kernel with its launches on its path,
 error, times and bound; sigma_probe also with the launch floor, an empty
-kernel's device time; glue_add and glue_concat, with the fused engine's
-launches, also with the int64 build's ms) and, last, the device line.
+kernel's device time; glue_add and glue_concat with the fused engine's
+launches) and, last, the device line.
 """
 
 from __future__ import annotations
@@ -555,27 +554,6 @@ def check_kernels(model, plan, batch: int, reps: int = 10):
     return res
 
 
-def glue_int64_lib():
-    """csrc/glue.cu built with its requant in int64 (AYQ_GLUE_REQUANT64),
-    epilogue.cuh's formula: the yardstick for the kernel's 32-bit one."""
-    import ctypes
-
-    from alpha_yolo_quant_torch.runtime import _build
-
-    so = _build.BUILD_DIR / "libayq_glue_int64.so"
-    out = subprocess.run(
-        [_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-DAYQ_GLUE_REQUANT64",
-         "-o", str(so), str(_build.CSRC / "glue.cu")],
-        capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed for glue.cu in int64:\n"
-                           f"{out.stdout}{out.stderr}")
-    lib = ctypes.CDLL(str(so))
-    lib.ayq_requant_combine.argtypes = _build.ARGTYPES["ayq_requant_combine"]
-    lib.ayq_requant_combine.restype = ctypes.c_int
-    return lib
-
-
 def glue_values(chw, dtype, batch: int, gen):
     """A random NHWC edge: int8 over its whole range; int16 over +-3*127
     with +-2^15 first (beyond any proof: the kernel must still wrap as the
@@ -594,12 +572,12 @@ def glue_values(chw, dtype, batch: int, gen):
 def check_glue_kernels(res, reps: int):
     """Phase 3e: requant_combine_kernel (fused_ops.residual_add / concat)
     against residual_add_plain / concat_plain on every add and concat node
-    of each GLUE_CELLS model at its cell's size and batch, in the int32
-    build and the int64 one, one launch a call, max|diff| 0; then, summed
-    over a model's nodes of each kind, device ms of both builds and of the
-    plain chain, and the byte bound (every source read and the output
-    written once at 3.35 TB/s). The requants, clips and dtypes are those of
-    the model calibrated at 64 px; only the shapes follow the size."""
+    of each GLUE_CELLS model at its cell's size and batch, one launch a
+    call, max|diff| 0; then, summed over a model's nodes of each kind,
+    device ms of the kernel and of the plain chain, and the byte bound
+    (every source read and the output written once at 3.35 TB/s). The
+    requants, clips and dtypes are those of the model calibrated at 64 px;
+    only the shapes follow the size."""
     import torch
 
     from alpha_yolo_quant_torch.engine_profile import (
@@ -609,76 +587,63 @@ def check_glue_kernels(res, reps: int):
         ConcatNode, ResidualAddNode, edge_shapes,
     )
     from alpha_yolo_quant_torch.parallel.pipeline import _edge_dtypes
-    from alpha_yolo_quant_torch.runtime import _build, fused_ops
+    from alpha_yolo_quant_torch.runtime import fused_ops
     from alpha_yolo_quant_torch.runtime.interpreter import _store_dtype
 
-    libs = {"ms": _build.build()["glue"], "int64_ms": glue_int64_lib()}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    try:
-        for name, size, batch in GLUE_CELLS:
-            model = build_model(64, "cuda", model=name)
-            shapes, dts = edge_shapes(model.graph, size), _edge_dtypes(model)
-            rq = {k: (int(v.rescale), int(v.shift))
-                  for k, v in model.requants.items()}
-            qmax = model.cfg.qmax
-            sums: dict = {}
-            for idx, node in enumerate(model.graph.nodes):
-                if isinstance(node, ResidualAddNode):
-                    kind, edges = "glue_add", (node.src, node.base)
-                elif isinstance(node, ConcatNode):
-                    kind, edges = "glue_concat", tuple(node.srcs)
-                else:
-                    continue
-                ts = {e: glue_values(shapes[e], dts[e], batch, gen)
-                      for e in edges}
-                dt = _store_dtype(model, node.dst)
-                if kind == "glue_add":
-                    args = (ts[node.src], ts[node.base],
-                            *rq[(idx, node.src)], qmax,
-                            model.clip_after_residual.get(idx), dt)
-                    fn = fused_ops.residual_add
-                    plain = fused_ops.residual_add_plain
-                else:
-                    args = ([ts[e] for e in node.srcs],
-                            [rq.get((idx, e)) for e in node.srcs], qmax, dt)
-                    fn, plain = fused_ops.concat, fused_ops.concat_plain
-                want = plain(*args)
-                s = sums.setdefault(kind, dict(n=0, bytes=0, ms=0.0,
-                                               int64_ms=0.0, plain_ms=0.0,
-                                               err=0))
-                for field, lib in libs.items():
-                    _build._LIBS["glue"] = lib
-                    before = fused_ops.LAUNCHES[kind]
-                    s["err"] = max(s["err"], max_err(
-                        fn(*args), want, f"{kind} [{field}] {name} "
-                        f"{node.dst}"))
-                    if fused_ops.LAUNCHES[kind] != before + 1:
-                        raise AssertionError(f"{kind} {name} {node.dst}: "
-                                             "not one launch a call")
-                    s[field] += device_ms(lambda: fn(*args), reps)
-                _build._LIBS["glue"] = libs["ms"]
-                s["plain_ms"] += device_ms(lambda: plain(*args),
-                                           max(2, reps // 5))
-                s["n"] += 1
-                s["bytes"] += nbytes(*ts.values(), want)
-                del ts, args, want
-            torch.cuda.empty_cache()
-            for kind, s in sums.items():
-                bound_ms, bound_by = bound(s["bytes"], 0)
-                shape = (f"{name} B={batch} {size}px, {s['n']} nodes "
-                         "summed")
-                log(f"kernel {kind} [{shape}]: max_abs_err={s['err']} "
-                    f"ms={s['ms']:.4f} int64_ms={s['int64_ms']:.4f} "
-                    f"plain_ms={s['plain_ms']:.4f} bound_ms={bound_ms:.4f} "
-                    f"({s['bytes']} B; {100 * bound_ms / s['ms']:.1f}% of "
-                    f"bound)")
-                keep_case(res, kind, s["bytes"], max_abs_err=s["err"],
-                          ms=s["ms"], int64_ms=s["int64_ms"],
-                          plain_ms=s["plain_ms"], bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None, shape=shape)
-    finally:
-        _build._LIBS["glue"] = libs["ms"]
+    for name, size, batch in GLUE_CELLS:
+        model = build_model(64, "cuda", model=name)
+        shapes, dts = edge_shapes(model.graph, size), _edge_dtypes(model)
+        rq = {k: (int(v.rescale), int(v.shift))
+              for k, v in model.requants.items()}
+        qmax = model.cfg.qmax
+        sums: dict = {}
+        for idx, node in enumerate(model.graph.nodes):
+            if isinstance(node, ResidualAddNode):
+                kind, edges = "glue_add", (node.src, node.base)
+            elif isinstance(node, ConcatNode):
+                kind, edges = "glue_concat", tuple(node.srcs)
+            else:
+                continue
+            ts = {e: glue_values(shapes[e], dts[e], batch, gen)
+                  for e in edges}
+            dt = _store_dtype(model, node.dst)
+            if kind == "glue_add":
+                args = (ts[node.src], ts[node.base], *rq[(idx, node.src)],
+                        qmax, model.clip_after_residual.get(idx), dt)
+                fn = fused_ops.residual_add
+                plain = fused_ops.residual_add_plain
+            else:
+                args = ([ts[e] for e in node.srcs],
+                        [rq.get((idx, e)) for e in node.srcs], qmax, dt)
+                fn, plain = fused_ops.concat, fused_ops.concat_plain
+            want = plain(*args)
+            s = sums.setdefault(kind, dict(n=0, bytes=0, ms=0.0,
+                                           plain_ms=0.0, err=0))
+            before = fused_ops.LAUNCHES[kind]
+            s["err"] = max(s["err"], max_err(fn(*args), want,
+                                             f"{kind} {name} {node.dst}"))
+            if fused_ops.LAUNCHES[kind] != before + 1:
+                raise AssertionError(f"{kind} {name} {node.dst}: "
+                                     "not one launch a call")
+            s["ms"] += device_ms(lambda: fn(*args), reps)
+            s["plain_ms"] += device_ms(lambda: plain(*args),
+                                       max(2, reps // 5))
+            s["n"] += 1
+            s["bytes"] += nbytes(*ts.values(), want)
+            del ts, args, want
+        torch.cuda.empty_cache()
+        for kind, s in sums.items():
+            bound_ms, bound_by = bound(s["bytes"], 0)
+            shape = f"{name} B={batch} {size}px, {s['n']} nodes summed"
+            log(f"kernel {kind} [{shape}]: max_abs_err={s['err']} "
+                f"ms={s['ms']:.4f} plain_ms={s['plain_ms']:.4f} "
+                f"bound_ms={bound_ms:.4f} ({s['bytes']} B; "
+                f"{100 * bound_ms / s['ms']:.1f}% of bound)")
+            keep_case(res, kind, s["bytes"], max_abs_err=s["err"],
+                      ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None, shape=shape)
 
 
 def expected_launches(model, engine: str, sp=None) -> dict:
@@ -781,7 +746,7 @@ def golden_heads(model, plan, x_u8):
         decode_full_quant_np, golden_forward,
     )
     from alpha_yolo_quant_torch.runtime.interpreter import (
-        decode_full_quant, int_forward, quantize_input,
+        decode_full_quant, int_forward, quantize_input, requant_heads,
     )
 
     outs = int_forward(model, plan, quantize_input(x_u8, model.cfg.k))
@@ -796,7 +761,8 @@ def golden_heads(model, plan, x_u8):
                                  "golden_forward")
     log(f"golden: the six head edges of one {model.cfg.image_size}px image "
         f"equal golden_forward (numpy int64 on the host, {sec:.1f} s)")
-    plane = decode_full_quant(model, plan, outs).cpu().numpy()
+    plane = decode_full_quant(model, plan, requant_heads(model, plan, outs)
+                              ).cpu().numpy()
     want = decode_full_quant_np(model, env)
     if plane.shape != want.shape or not np.array_equal(
             plane.astype(np.float64), want):
@@ -1751,7 +1717,7 @@ def main() -> int:
              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], library_ms=r["library_ms"],
              shape=r["shape"],
-             **{f: r[f] for f in ("launch_floor_ms", "int64_ms") if f in r})
+             **{f: r[f] for f in ("launch_floor_ms",) if f in r})
         for k, r in kres.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,9 +72,8 @@ def test_serving_decode_equals_jax(full_model, head_outs):
     want = jax.jit(lambda o: jinterp.decode_full_quant(
         jmodel, jplan, o, sigmoid_cls=False, reduce_cls=True,
         pre_requantized=True))({k: jnp.asarray(v) for k, v in pre.items()})
-    got = tinterp.decode_full_quant(
-        tmodel, tplan, {k: _t(v) for k, v in pre.items()},
-        sigmoid_cls=False, reduce_cls=True, pre_requantized=True)
+    got = tinterp.decode_serving(tmodel, tplan,
+                                 {k: _t(v) for k, v in pre.items()})
     for g, w, name in zip(got, want, ("dbox", "conf", "cid")):
         assert g.dtype == torch.float32, name
         np.testing.assert_array_equal(g.numpy(), np.asarray(w),
@@ -83,15 +82,17 @@ def test_serving_decode_equals_jax(full_model, head_outs):
 
 @pytest.mark.parametrize("sigmoid_cls", [True, False])
 def test_dense_decode_equals_jax(full_model, head_outs, sigmoid_cls):
-    """The (B, 84, N) decode from raw accumulators, f32 dist2bbox
-    included."""
+    """The (B, 84, N) decode from raw accumulators (the port's
+    requant_heads, then its plane; JAX's decode requantizes itself), f32
+    dist2bbox included."""
     tmodel, jmodel = full_model
     jplan, tplan, _ = _requant_heads(full_model, head_outs)
     want = np.asarray(jinterp.decode_full_quant(
         jmodel, jplan, {k: jnp.asarray(v) for k, v in head_outs.items()},
         sigmoid_cls=sigmoid_cls))
     got = tinterp.decode_full_quant(
-        tmodel, tplan, {k: _t(v) for k, v in head_outs.items()},
+        tmodel, tplan, tinterp.requant_heads(
+            tmodel, tplan, {k: _t(v) for k, v in head_outs.items()}),
         sigmoid_cls=sigmoid_cls).numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -326,9 +327,9 @@ def test_golden_decode_consistency(full_model):
     x = RNG.uniform(0, 1, (1, 3, 64, 64)).astype(np.float32)
     env = golden_forward(jmodel, x)
     plan = tinterp.device_plan(tmodel, "cpu")
-    preds = tinterp.decode_full_quant(
+    preds = tinterp.decode_full_quant(tmodel, plan, tinterp.requant_heads(
         tmodel, plan, {r: _t(env[r]).to(torch.int32)
-                       for r in tmodel.graph.outputs})
+                       for r in tmodel.graph.outputs}))
     assert preds.shape == (1, 84, 84) and torch.isfinite(preds).all()
     np.testing.assert_array_equal(
         preds.numpy().astype(np.float64),

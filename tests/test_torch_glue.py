@@ -3,7 +3,8 @@ residual_add / concat, csrc/glue.cu) on the CPU: the plain versions against
 a numpy int64 statement of requantize_np + add + clip + cast and of
 requant + cat, the host side of the kernel's launch (its parts, offsets and
 strides) through a numpy stand-in for the C entry, the launch path's
-refusals, and the whole fused forward at 64 px against golden_forward. No JAX.
+refusals, and the whole fused forward at 64 px against golden_forward, with
+the full-quant decode's forms on its heads. No JAX.
 
 The kernel itself runs only on a card: tests/test_torch_gpu.py holds it to
 these plain versions bit for bit."""
@@ -17,15 +18,19 @@ from alpha_yolo_quant_torch.models.graph import (
     ConcatNode, ResidualAddNode, build_yolov8_graph,
 )
 from alpha_yolo_quant_torch.models.params import init_params
+from alpha_yolo_quant_torch.postprocess.nms import xywh2xyxy
 from alpha_yolo_quant_torch.quantize.calibrate import (
     collect_stats, reduce_stats,
 )
 from alpha_yolo_quant_torch.quantize.primitives import requantize_np
 from alpha_yolo_quant_torch.quantize.transform import build_quantized_model
 from alpha_yolo_quant_torch.runtime import _build, fused_ops
-from alpha_yolo_quant_torch.runtime.golden import golden_forward
+from alpha_yolo_quant_torch.runtime.golden import (
+    decode_full_quant_np, golden_forward,
+)
 from alpha_yolo_quant_torch.runtime.interpreter import (
-    device_plan, int_forward, quantize_input,
+    decode_full_quant, decode_select_sparse, decode_serving, device_plan,
+    int_forward, quantize_input, requant_heads,
 )
 
 QMAX = 127
@@ -277,26 +282,45 @@ def test_launch_refuses_strided_and_mixed_sources(stand_in):
 
 # --------------------------------------------------------- whole forward
 
+@pytest.fixture(scope="module")
+def forwards():
+    """model name -> (model, plan, fused int_forward with keep_env,
+    golden_forward's env) of two images at 64 px, the model calibrated on
+    random weights; each built once a module."""
+    cache = {}
+
+    def get(model):
+        if model not in cache:
+            cfg = QuantConfig(model=model, k=8, full_quant=True,
+                              image_size=64)
+            graph = build_yolov8_graph(cfg)
+            params = init_params(graph, seed=0)
+            calib = np.random.default_rng(0).uniform(
+                0, 1, (2, 3, 64, 64)).astype(np.float32)
+            qm = build_quantized_model(
+                graph, params,
+                reduce_stats(collect_stats(graph, params, [calib], "cpu")),
+                cfg)
+            x = np.random.default_rng(1).uniform(
+                0, 1, (2, 3, 64, 64)).astype(np.float32)
+            plan = device_plan(qm, "cpu")
+            outs = int_forward(qm, plan, quantize_input(torch.as_tensor(x), 8),
+                               keep_env=True)
+            cache[model] = qm, plan, outs, golden_forward(qm, x)
+        return cache[model]
+
+    return get
+
+
 @pytest.mark.parametrize("model,n_add,n_cat", [("yolov8n", 6, 13),
                                                ("yolov8m-p6", 14, 18)])
-def test_fused_forward_equals_golden(model, n_add, n_cat):
+def test_fused_forward_equals_golden(forwards, model, n_add, n_cat):
     """The fused int_forward at 64 px with keep_env: every edge and every
     residual/concat requant intermediate equals golden_forward's."""
-    cfg = QuantConfig(model=model, k=8, full_quant=True, image_size=64)
-    graph = build_yolov8_graph(cfg)
+    qm, _, outs, want = forwards(model)
+    graph = qm.graph
     assert sum(isinstance(n, ResidualAddNode) for n in graph.nodes) == n_add
     assert sum(isinstance(n, ConcatNode) for n in graph.nodes) == n_cat
-    params = init_params(graph, seed=0)
-    calib = np.random.default_rng(0).uniform(0, 1, (2, 3, 64, 64)).astype(
-        np.float32)
-    qm = build_quantized_model(
-        graph, params,
-        reduce_stats(collect_stats(graph, params, [calib], "cpu")), cfg)
-    x = np.random.default_rng(1).uniform(0, 1, (2, 3, 64, 64)).astype(
-        np.float32)
-    outs = int_forward(qm, device_plan(qm, "cpu"),
-                       quantize_input(torch.as_tensor(x), 8), keep_env=True)
-    want = golden_forward(qm, x)
     env = outs["__env__"]
     glue = {k for k in want if k.endswith((":rescale", ":requant"))}
     assert len(glue) >= n_add and glue <= set(env)
@@ -308,3 +332,42 @@ def test_fused_forward_equals_golden(model, n_add, n_cat):
     for role in graph.outputs:
         np.testing.assert_array_equal(outs[role].numpy().astype(np.int64),
                                       want[role], err_msg=role)
+
+
+@pytest.mark.parametrize("model,n", [("yolov8n", 84), ("yolov8m-p6", 85)],
+                         ids=["yolov8n", "yolov8m-p6"])
+def test_decode_forms_agree(forwards, model, n):
+    """On that forward's requant_heads: decode_full_quant's plane equals
+    golden's decode_full_quant_np; without the sigmoid its class rows are
+    the sigmoid LUT's inputs; decode_serving's boxes are the plane's and
+    its (conf, cid) the class rows' max and lowest argmax; and
+    decode_select_sparse keeps the top 32 of them in descending conf,
+    ties to the lowest anchor, with the serving boxes as xyxy."""
+    qm, plan, outs, want = forwards(model)
+    heads = requant_heads(qm, plan, {r: outs[r] for r in qm.graph.outputs})
+    plane = decode_full_quant(qm, plan, heads)
+    assert tuple(plane.shape) == (2, 84, n)
+    np.testing.assert_array_equal(plane.numpy().astype(np.float64),
+                                  decode_full_quant_np(qm, want))
+    raw = decode_full_quant(qm, plan, heads, sigmoid_cls=False)
+    cls = raw[:, 4:].to(torch.int64)
+    assert torch.equal(raw[:, :4], plane[:, :4])
+    assert torch.equal(plan["head"]["cls_sig_lut"].apply(cls).to(
+        torch.float32), plane[:, 4:])
+    dbox, conf, cid = decode_serving(qm, plan, heads)
+    assert torch.equal(dbox, plane[:, :4])
+    best = cls.amax(1)
+    assert torch.equal(conf, best.to(torch.float32))
+    assert torch.equal(cid, (cls == best[:, None]).to(torch.int64).argmax(
+        1).to(torch.float32))
+    m = 32
+    thres = float(conf[0].sort(descending=True).values[m // 2]) - 0.5
+    boxes, conf_s, cid_s, valid = decode_select_sparse(
+        qm, plan, heads, pre_topk=m, conf_thres=thres)
+    order = torch.sort(conf, dim=1, descending=True,
+                       stable=True).indices[:, :m]
+    assert torch.equal(conf_s, torch.gather(conf, 1, order))
+    assert torch.equal(cid_s, torch.gather(cid, 1, order))
+    assert torch.equal(boxes, xywh2xyxy(torch.gather(
+        dbox, 2, order[:, None].expand(-1, 4, -1)).transpose(1, 2)))
+    assert torch.equal(valid, conf_s > thres) and valid.any()

@@ -73,18 +73,6 @@ def test_pipeline_equals_jax(full_model, dtype):
     _assert_dets_equal(got, want, dtype)
 
 
-def test_pipeline_pad_batch_to_equals_jax(full_model):
-    tmodel, jmodel = full_model
-    x = RNG.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
-    jfn, _ = jinterp.build_int_pipeline(jmodel, engine="xla",
-                                        pad_batch_to=5)
-    fn, _ = build_int_pipeline(tmodel, "cpu", pad_batch_to=5)
-    got = fn(x)
-    _assert_dets_equal(got, jax.jit(jfn)(jnp.asarray(x)), "padded")
-    plain_fn, _ = build_int_pipeline(tmodel, "cpu")
-    _assert_dets_equal(got, plain_fn(x), "padded vs unpadded")
-
-
 def test_pipeline_coalesce_requests_equals_jax(full_model):
     reqs = [RNG.integers(0, 256, (2, 3, 64, 64)).astype(np.uint8),
             RNG.uniform(0, 1, (1, 3, 64, 64)).astype(np.float32),

