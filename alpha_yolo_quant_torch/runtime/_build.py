@@ -33,10 +33,11 @@ _PL = ctypes.POINTER(ctypes.c_longlong)
 # c_void_p; host arrays (the slab conv's slabs and launch plan, the glue
 # kernel's parts) as pointer types
 ARGTYPES = {
-    "ayq_conv1x1": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
-                    _I, _I, _I, _I, _I, _I, _P],
-    "ayq_conv3x3": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+    "ayq_conv1x1": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                     _I, _I, _I, _I, _I, _I, _I, _P],
+    "ayq_conv3x3": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ayq_conv_weight_map": [_P, _I, _I, _I, _P],
     "ayq_sigma_probe": [_P, _I, _I, _P, _P],
     "ayq_postconv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _L, _I,
                      _L, _I, _P],

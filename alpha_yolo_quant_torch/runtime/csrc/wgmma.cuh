@@ -1,7 +1,8 @@
 // PTX helpers of the Hopper int8 tensor-core kernels (conv_igemm.cuh,
 // packed_conv.cu): 16-byte cp.async copies, the async-proxy and wgmma
-// fences, the no-swizzle shared-memory descriptor, and
-// wgmma.mma_async.m64nNk32.s32.{s8,u8}.s8 for N = 16, 32, 64.
+// fences, the shared-memory descriptors (no swizzle, and the 128-byte swizzle
+// that TMA writes), mbarriers, TMA tile loads, setmaxnreg, and
+// wgmma.mma_async.m64nNk32.s32.{s8,u8}.s8 for every N = 16, 32, ..., 256.
 #pragma once
 
 #include <cstdint>
@@ -21,6 +22,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
+}
+// An arrival on the mbarrier once every cp.async this thread has issued so
+// far has landed; .noinc: the barrier's count includes this arrival.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -60,58 +66,238 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
+// K-major operand in the 128-byte swizzle: row r (an M or N index) holds 128
+// bytes of depth at r*128, its 16-byte chunk c stored at chunk c ^ (r % 8);
+// 8-row groups 1024 bytes apart, the tile 1024-byte aligned. A k32 step j
+// starts 32*j bytes into the rows (the hardware applies the swizzle to the
+// address it forms, so the step needs no base offset).
+__device__ __forceinline__ uint64_t smem_desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// ------------------------------------------------------------- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Makes the initialised barriers visible to the other threads and to TMA.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// One arrival, and `bytes` more to come from TMA before the phase completes.
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Waits for the completion of the barrier's phase of this parity. A phase
+// that never completes is a fault of the kernel: trap (the launch fails with
+// an error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0; !mbar_try(bar, parity);)
+    if (++n == (1u << 22)) __trap();
+}
+
+// TMA: the box of a 2-D tensor map at (c0, c1) (innermost first) into shared
+// memory, its bytes reported to the barrier.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Named barrier over `n` threads (id 0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Register budget of the calling warpgroup (all 128 threads, one value).
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ------------------------------------------------------------------ wgmma
+
 #define AYQ_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
 #define AYQ_R8(i) AYQ_R4(i), AYQ_R4(i + 4)
-#define AYQ_SETP(n) "{\n.reg .pred p;\nsetp.ne.b32 p, %" #n ", 0;\n"
+#define AYQ_WGMMA(N, AT, REGS, DA, DB, P)                                                \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\nwgmma.mma_async.sync.aligned.m64n" #N \
+  "k32.s32." AT ".s8 {" REGS "}, %" DA ", %" DB ", p;\n}\n"
 
 // D(64 x N, s32) += A(64 x 32, s8 or u8) * B(32 x N, s8), both from shared
-// memory; d holds this thread's N/2 accumulators.
+// memory; d holds this thread's N/2 accumulators: accumulator a sits at
+// column 8*(a/4) + 2*(lane%4) + a%2 and row lane/4 + 8*((a/2)%2) of its
+// warp's 16 rows.
 template <int N, bool U8A>
 struct Mma;
 
-#define AYQ_MMA16(AT)                                                             \
-  asm volatile(AYQ_SETP(10) "wgmma.mma_async.sync.aligned.m64n16k32.s32." AT      \
-                            ".s8 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n" \
-               : AYQ_R8(0)                                                        \
-               : "l"(da), "l"(db), "r"(1))
-#define AYQ_MMA32(AT)                                                              \
-  asm volatile(AYQ_SETP(18) "wgmma.mma_async.sync.aligned.m64n32k32.s32." AT       \
-                            ".s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
-                            "%12, %13, %14, %15}, %16, %17, p;\n}\n"                \
-               : AYQ_R8(0), AYQ_R8(8)                                              \
-               : "l"(da), "l"(db), "r"(1))
-#define AYQ_MMA64(AT)                                                                 \
-  asm volatile(AYQ_SETP(34) "wgmma.mma_async.sync.aligned.m64n64k32.s32." AT          \
-                            ".s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "    \
-                            "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "    \
-                            "%23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, " \
-                            "p;\n}\n"                                                  \
-               : AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24)                          \
-               : "l"(da), "l"(db), "r"(1))
+#define AYQ_MMA(N, REGS, DA, DB, P, ...)                                                  \
+  template <bool U8A>                                                                     \
+  struct Mma<N, U8A> {                                                                    \
+    static __device__ __forceinline__ void run(int* d, uint64_t da, uint64_t db) {        \
+      if constexpr (U8A)                                                                  \
+        asm volatile(AYQ_WGMMA(N, "u8", REGS, DA, DB, P)                                  \
+                     : __VA_ARGS__                                                        \
+                     : "l"(da), "l"(db), "r"(1));                                         \
+      else                                                                                \
+        asm volatile(AYQ_WGMMA(N, "s8", REGS, DA, DB, P)                                  \
+                     : __VA_ARGS__                                                        \
+                     : "l"(da), "l"(db), "r"(1));                                         \
+    }                                                                                     \
+  }
 
-template <> struct Mma<16, false> {
-  static __device__ __forceinline__ void run(int* d, uint64_t da, uint64_t db) { AYQ_MMA16("s8"); }
-};
-template <> struct Mma<16, true> {
-  static __device__ __forceinline__ void run(int* d, uint64_t da, uint64_t db) { AYQ_MMA16("u8"); }
-};
-template <> struct Mma<32, false> {
-  static __device__ __forceinline__ void run(int* d, uint64_t da, uint64_t db) { AYQ_MMA32("s8"); }
-};
-template <> struct Mma<32, true> {
-  static __device__ __forceinline__ void run(int* d, uint64_t da, uint64_t db) { AYQ_MMA32("u8"); }
-};
-template <> struct Mma<64, false> {
-  static __device__ __forceinline__ void run(int* d, uint64_t da, uint64_t db) { AYQ_MMA64("s8"); }
-};
-template <> struct Mma<64, true> {
-  static __device__ __forceinline__ void run(int* d, uint64_t da, uint64_t db) { AYQ_MMA64("u8"); }
-};
+AYQ_MMA(16, "%0, %1, %2, %3, %4, %5, %6, %7", "8", "9", "10",
+        AYQ_R8(0));
+AYQ_MMA(32, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15", "16", "17", "18",
+        AYQ_R8(0), AYQ_R8(8));
+AYQ_MMA(48, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23", "24", "25", "26",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16));
+AYQ_MMA(64, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31", "32", "33", "34",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24));
+AYQ_MMA(80, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39", "40", "41", "42",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32));
+AYQ_MMA(96, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47", "48", "49", "50",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40));
+AYQ_MMA(112, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55", "56", "57", "58",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48));
+AYQ_MMA(128, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63", "64", "65", "66",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48), AYQ_R8(56));
+AYQ_MMA(144, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71", "72", "73", "74",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64));
+AYQ_MMA(160, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79", "80", "81", "82",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72));
+AYQ_MMA(176, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87", "88", "89", "90",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80));
+AYQ_MMA(192, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95", "96", "97", "98",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88));
+AYQ_MMA(208, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103", "104", "105", "106",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88),
+        AYQ_R8(96));
+AYQ_MMA(224, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111", "112", "113", "114",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88),
+        AYQ_R8(96), AYQ_R8(104));
+AYQ_MMA(240, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119", "120", "121", "122",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88),
+        AYQ_R8(96), AYQ_R8(104), AYQ_R8(112));
+AYQ_MMA(256, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127", "128", "129", "130",
+        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
+        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88),
+        AYQ_R8(96), AYQ_R8(104), AYQ_R8(112), AYQ_R8(120));
 
-#undef AYQ_MMA16
-#undef AYQ_MMA32
-#undef AYQ_MMA64
-#undef AYQ_SETP
+
+#undef AYQ_MMA
+#undef AYQ_WGMMA
 #undef AYQ_R8
 #undef AYQ_R4
 

@@ -12,7 +12,9 @@ failed launch.
 Activations are NHWC. A conv's plan entry (interpreter.device_plan) holds
 its weights twice: OIHW float64 for the plain version and the tensor-core
 kernels' B operand, (Cout, Kp) int8 with the depth tap-major and
-contiguous per output channel (pack_weights).
+contiguous per output channel (pack_weights). On a CUDA device the entry
+also holds the B operand's TMA descriptor for its column tiles (tile_n),
+encoded once when the entry is made.
 """
 
 from __future__ import annotations
@@ -28,14 +30,20 @@ from alpha_yolo_quant_torch.ops.lut import DeviceLut
 from alpha_yolo_quant_torch.ops.nn import conv2d_int_exact
 
 # kernel launches since the last reset_counts(); only a launch of the
-# kernel itself counts, never a plain-version call
-LAUNCHES: Dict[str, int] = {"conv1x1": 0, "conv3x3": 0, "sigma_probe": 0,
-                            "postconv_silu": 0, "postconv_plain": 0,
-                            "packed_conv": 0, "glue_add": 0,
-                            "glue_concat": 0}
+# kernel itself counts, never a plain-version call. A conv launch counts
+# under its wrapper (conv1x1, conv3x3) and under the loader that fed its
+# input rows (conv_loader): conv_vector, conv_wide or conv_gather
+LAUNCHES: Dict[str, int] = {"conv1x1": 0, "conv3x3": 0, "conv_vector": 0,
+                            "conv_wide": 0, "conv_gather": 0,
+                            "sigma_probe": 0, "postconv_silu": 0,
+                            "postconv_plain": 0, "packed_conv": 0,
+                            "glue_add": 0, "glue_concat": 0}
 
-K_TILE = 64        # conv_igemm.cuh BK, the depth of one pipeline stage:
-#                    packed weight depth is zero-padded to a multiple of it
+K_TILE = 64        # packed weight depth is zero-padded to a multiple of it
+#                    (the conv kernels' stages hold 128 bytes of depth and
+#                    read past Kp as zeros)
+MAX_TILE_N = 256   # widest column tile: wgmma's largest N
+MAX_COUT = 1024    # conv_igemm.cuh MAX_NP: the constants a block holds
 MAX_LUT = 256      # epilogue.cuh kMaxLut: the longest sigmoid table
 CHUNK = 16         # channels per cp.async copy (conv_igemm.cuh): inputs
 #                    with Cin % CHUNK == 0 are read 16 bytes at a time
@@ -64,10 +72,51 @@ def pack_weights(w_q: np.ndarray) -> np.ndarray:
         np.pad(wk, ((0, 0), (0, kp - wk.shape[1]))).astype(np.int8))
 
 
+def tile_n(cout: int) -> int:
+    """Columns of the conv kernels' output tile for Cout channels: Cout
+    spread evenly over ceil(Cout / MAX_TILE_N) column tiles, the share
+    rounded up to a multiple of 16 (a legal wgmma.m64nNk32 width), so a
+    tile is at most 15 columns wider than an even share of Cout."""
+    n_tiles = -(-cout // MAX_TILE_N)
+    return 16 * -(-cout // (16 * n_tiles))
+
+
+def conv_loader(x: torch.Tensor, cin: int) -> str:
+    """The LAUNCHES key of the loader that feeds a conv's input rows:
+    conv_gather where Cin % CHUNK != 0 (element by element), else
+    conv_wide for int16 input (two byte passes), else conv_vector."""
+    if cin % CHUNK:
+        return "conv_gather"
+    return "conv_wide" if x.dtype == torch.int16 else "conv_vector"
+
+
+def _weight_map(c: Dict) -> ctypes.Array:
+    """The B operand's TMA descriptor for tiles of tile_n(cout) columns,
+    kept in the entry with the address it was encoded for."""
+    from alpha_yolo_quant_torch.runtime._build import kernel
+
+    w = c["w_packed"]
+    bn = tile_n(c["cout"])
+    key = (w.data_ptr(), tuple(w.shape), bn)
+    if c.get("w_map") is not None and c["w_map"][0] == key:
+        return c["w_map"][1]
+    buf = ctypes.create_string_buffer(128)
+    lib = "conv1x1" if c["kernel"] == 1 else "conv3x3"
+    rc = kernel(lib, "ayq_conv_weight_map")(w.data_ptr(), w.shape[0],
+                                            w.shape[1], bn,
+                                            ctypes.addressof(buf))
+    if rc != 0:
+        raise RuntimeError(f"{lib}: weight tensor map not encoded "
+                           f"(rc {rc})")
+    c["w_map"] = (key, buf)
+    return buf
+
+
 def conv_entry(w_q, b_q, stride: int, padding: int, silu: bool, device,
                r1=None, s1=None, r2=None, s2=None) -> Dict:
     """One conv's tensors in the form every wrapper here takes: weights
-    for both versions, per-output-channel int32 constants, geometry."""
+    for both versions, per-output-channel int32 constants, geometry, and
+    on a CUDA device the weights' TMA descriptor."""
     w_q = np.asarray(w_q)
     c = {"w_f64": torch.as_tensor(w_q, dtype=torch.float64, device=device),
          "w_packed": torch.as_tensor(pack_weights(w_q), device=device),
@@ -75,11 +124,15 @@ def conv_entry(w_q, b_q, stride: int, padding: int, silu: bool, device,
                               device=device),
          "kernel": int(w_q.shape[2]), "stride": int(stride),
          "padding": int(padding), "silu": bool(silu),
-         "cin": int(w_q.shape[1]), "cout": int(w_q.shape[0])}
+         "cin": int(w_q.shape[1]), "cout": int(w_q.shape[0]),
+         "w_map": None}
     if silu:
         for f, v in (("r1", r1), ("s1", s1), ("r2", r2), ("s2", s2)):
             c[f] = torch.as_tensor(np.asarray(v).reshape(-1),
                                    dtype=torch.int32, device=device)
+    if c["w_packed"].is_cuda and c["kernel"] in (1, 3) \
+            and c["cout"] <= MAX_COUT:
+        _weight_map(c)
     return c
 
 
@@ -208,6 +261,9 @@ def _check_conv(name: str, x: torch.Tensor, c: Dict, sig, qmax: int):
     if w.device != x.device:
         raise ValueError(f"{name}: weights on {w.device}, "
                          f"input on {x.device}")
+    if c["cout"] > MAX_COUT:
+        raise ValueError(f"{name}: {c['cout']} output channels, the kernel "
+                         f"takes at most {MAX_COUT}")
     if c["silu"]:
         _check_table(name, sig, qmax)
 
@@ -229,8 +285,10 @@ def _launch_conv(name: str, x: torch.Tensor, c: Dict, sig, qmax: int):
     else:   # the plain epilogue reads none of them
         consts = [c["b"]] * 5
         tab_lo, tab_n = 0, 0
+    wmap = _weight_map(c)
     args = [x.data_ptr(), int(x.dtype == torch.int16),
-            c["w_packed"].data_ptr(), c["b"].data_ptr()] \
+            c["w_packed"].data_ptr(), ctypes.addressof(wmap),
+            tile_n(c["cout"]), c["b"].data_ptr()] \
         + [t.data_ptr() for t in consts] \
         + [tab_lo, tab_n, out.data_ptr(), int(silu), b, h, w, cin, c["cout"]]
     if name == "conv3x3":
@@ -240,6 +298,7 @@ def _launch_conv(name: str, x: torch.Tensor, c: Dict, sig, qmax: int):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
     LAUNCHES[name] += 1
+    LAUNCHES[conv_loader(x, cin)] += 1
     return out
 
 

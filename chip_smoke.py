@@ -12,7 +12,10 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      seed, calibrated by the port's own float forward;
   3. hold every kernel against its plain PyTorch version on the card,
      max|diff| must be 0: conv1x1/conv3x3 on all 63 conv shapes of the
-     graph at B=2 (int16 input on the wide edges); then time kernel and
+     graph at B=2 (int16 input on the wide edges) and on every conv shape
+     of yolov8m and yolov8m-p6 (128 px maps, int8 and int16 input), each
+     launch counted under the loader its input takes (conv_vector,
+     conv_wide, conv_gather); then time kernel and
      plain with CUDA events: the conv kernels at shapes read from the
      graph IR at B=8 and B=128, with torch._int_mm on the same int8
      product as the yardstick, the postconv epilogues on the nibble-split
@@ -273,12 +276,38 @@ def check_tensor_cores() -> None:
                                  "tensor-core instruction, or a __dp4a")
 
 
+LOADERS = ("conv_vector", "conv_wide", "conv_gather")
+
+
+def counted_conv(x, c, sig, label: str):
+    """One conv1x1/conv3x3 call against conv_plain (max|diff| 0), counted
+    once under its wrapper and once under the loader its input takes."""
+    from alpha_yolo_quant_torch.runtime import fused_ops
+
+    wrapper = fused_ops.conv1x1 if c["kernel"] == 1 else fused_ops.conv3x3
+    loader = fused_ops.conv_loader(x, c["cin"])
+    before = dict(fused_ops.LAUNCHES)
+    max_err(wrapper(x, c, sig), fused_ops.conv_plain(x, c, sig, 127), label)
+    moved = {k: fused_ops.LAUNCHES[k] - before[k]
+             for k in (wrapper.__name__, *LOADERS)}
+    if moved != {wrapper.__name__: 1,
+                 **{k: int(k == loader) for k in LOADERS}}:
+        raise AssertionError(f"{label}: launches moved by {moved}, expected "
+                             f"one {wrapper.__name__} on {loader}")
+    return loader
+
+
 def check_every_conv_shape(model, sig, batch: int = 2) -> None:
     """Phase 3a: conv1x1/conv3x3 against conv_plain on every conv of the
     graph at its own shape, int16 input where the model marks the input
-    edge wide (edge_amax_int > 127)."""
-    from alpha_yolo_quant_torch.runtime import fused_ops
+    edge wide (edge_amax_int > 127); then every conv of the yolov8m and
+    yolov8m-p6 graphs (published widths, 128 px maps) on int8 input and,
+    where Cin % 16 == 0, on int16 input. Each launch is counted under the
+    loader its input takes."""
+    from alpha_yolo_quant_torch.config import QuantConfig
+    from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
 
+    dev = sig.values.device
     geo = edge_geometry(model.graph)
     convs = model.graph.convs()
     wide = []
@@ -286,19 +315,30 @@ def check_every_conv_shape(model, sig, batch: int = 2) -> None:
     for i, node in enumerate(convs):
         is_wide = model.edge_amax_int.get(node.src, 0) > 127
         x, c = random_conv_case(node, geo[node.src][1], batch, is_wide,
-                                node.silu, seed=300 + i,
-                                device=sig.values.device)
-        wrapper = (fused_ops.conv1x1 if node.kernel == 1
-                   else fused_ops.conv3x3)
-        max_err(wrapper(x, c, sig), fused_ops.conv_plain(x, c, sig, 127),
-                f"{node.name} {node.cin}->{node.cout} k{node.kernel} "
-                f"s{node.stride}")
+                                node.silu, seed=300 + i, device=dev)
+        counted_conv(x, c, sig, f"{node.name} {node.cin}->{node.cout} "
+                     f"k{node.kernel} s{node.stride}")
         if is_wide:
             wide.append(node.name)
     log(f"kernel conv1x1/conv3x3: all {len(convs)} conv shapes of the "
         f"{model.cfg.image_size}px graph at B={batch} equal conv_plain "
         f"(max_abs_err=0; int16 input on the {len(wide)} wide edges: "
         f"{', '.join(wide)}) in {time.perf_counter() - t0:.1f} s")
+    for name in ("yolov8m", "yolov8m-p6"):
+        t0 = time.perf_counter()
+        graph = build_yolov8_graph(QuantConfig(model=name, image_size=128))
+        geo = edge_geometry(graph)
+        seen = dict.fromkeys(LOADERS, 0)
+        for i, node in enumerate(graph.convs()):
+            for is_wide in (False, True) if node.cin % 16 == 0 else (False,):
+                x, c = random_conv_case(node, geo[node.src][1], batch,
+                                        is_wide, node.silu, seed=500 + i,
+                                        device=dev)
+                seen[counted_conv(x, c, sig, f"{name} {node.name} "
+                                  f"{'int16' if is_wide else 'int8'}")] += 1
+        log(f"kernel conv1x1/conv3x3: all {len(graph.convs())} conv shapes "
+            f"of the {name} graph (128px maps, B={batch}) equal conv_plain, "
+            f"launches by loader {seen} in {time.perf_counter() - t0:.1f} s")
 
 
 def check_conv_kernels(graph, sig, res, batch: int, reps: int):
@@ -706,6 +746,9 @@ def serve(model, device):
         log(f"serve [{engine}]: 3 coalesced requests (4 uint8 + 8 f32 + 4 "
             f"f32 images, {s}px) -> launches {counts}; expected per "
             f"forward {exp}")
+        if sum(counts[k] for k in LOADERS) != seen["conv"]:
+            raise AssertionError(f"{engine}: conv launches by loader do not "
+                                 f"add up to {seen['conv']}")
         if seen != exp or min(counts[k] for k in
                               ENGINE_KERNELS[engine]) < 1:
             raise AssertionError(f"{engine}: the serving path did not run "

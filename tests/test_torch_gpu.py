@@ -78,14 +78,102 @@ def test_conv_kernel_equals_plain(cuda, case):
     c = fused_ops.conv_entry(w, b, stride, k // 2, silu, cuda, r1=r1, s1=s1,
                              r2=r2, s2=s2)
     sig = DeviceLut(sigmoid_lut(6.0, 8), cuda)
-    wrapper = fused_ops.conv1x1 if k == 1 else fused_ops.conv3x3
-    before = fused_ops.LAUNCHES[wrapper.__name__]
+    _assert_conv_equals_plain(x, c, sig)
+
+
+def _assert_conv_equals_plain(x, c, sig):
+    """One launch of the conv's wrapper, counted under the wrapper and
+    under the loader its input takes, bit-equal to conv_plain."""
+    wrapper = fused_ops.conv1x1 if c["kernel"] == 1 else fused_ops.conv3x3
+    loader = fused_ops.conv_loader(x, c["cin"])
+    before = dict(fused_ops.LAUNCHES)
     got = wrapper(x, c, sig, 127)
     want = fused_ops.conv_plain(x, c, sig, 127)
     torch.cuda.synchronize()
-    assert fused_ops.LAUNCHES[wrapper.__name__] == before + 1
+    for key in (wrapper.__name__, loader):
+        assert fused_ops.LAUNCHES[key] == before[key] + 1, key
+    others = {"conv_vector", "conv_wide", "conv_gather"} - {loader}
+    assert all(fused_ops.LAUNCHES[k] == before[k] for k in others)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
+
+
+def _random_conv(rng, cin, cout, k, stride, shape, wide, silu):
+    amax = 381 if wide else 127
+    x = torch.as_tensor(rng.integers(-amax, amax + 1, shape + (cin,)),
+                        dtype=torch.int16 if wide else torch.int8,
+                        device="cuda")
+    w = rng.integers(-127, 128, (cout, cin, k, k))
+    b = rng.integers(-2 ** 15, 2 ** 15, cout)
+    r1, r2 = rng.integers(1, 256, cout), rng.integers(1, 256, cout)
+    s1, s2 = rng.integers(1, 24, cout), rng.integers(8, 32, cout)
+    c = fused_ops.conv_entry(w, b, stride, k // 2, silu, "cuda", r1=r1,
+                             s1=s1, r2=r2, s2=s2)
+    return x, c
+
+
+# (cin, cout, kernel, stride, (B, H, W), wide input, silu) for the
+# persistent pipeline's tiles: the widths tile_n gives yolov8m (48, 96,
+# 144 = 288 over two column tiles, 192; 384 and 576 over two and three),
+# a ragged 272 = 2 x 144; M of one tile or less (25 rows); several tiles
+# a block (B*H*W / 64 at least three times the card's 132 SMs: 25,600 to
+# 32,768 rows), at BN <= 128 and wider (two register splits); depth of
+# many ring laps (9*192, 9*576: the main loops' turns);
+# a depth tail inside a stage (K = 432, 864); the wide int16 loader and
+# the gather loader at the new widths; yolov8m's Cin = 3 stem
+PIPELINE_CASES = [
+    (48, 48, 3, 1, (8, 64, 64), False, True),
+    (96, 96, 3, 1, (2, 128, 128), False, True),
+    (192, 288, 1, 1, (1, 160, 160), False, True),
+    (192, 192, 3, 1, (4, 80, 80), False, True),
+    (384, 384, 3, 2, (2, 21, 21), False, True),
+    (576, 576, 3, 1, (1, 9, 11), False, True),
+    (576, 576, 1, 1, (4, 80, 80), False, False),
+    (64, 272, 3, 1, (2, 11, 13), False, True),
+    (48, 96, 3, 2, (1, 9, 11), False, True),
+    (96, 192, 1, 1, (1, 5, 5), False, True),
+    (48, 48, 3, 1, (8, 64, 64), True, True),
+    (96, 288, 1, 1, (1, 160, 160), True, True),
+    (192, 192, 3, 1, (4, 80, 80), True, False),
+    (3, 48, 3, 2, (4, 320, 320), False, True),
+    (3, 16, 3, 2, (1, 64, 64), False, True),
+    (24, 144, 3, 1, (2, 10, 10), True, True),
+    (40, 80, 1, 1, (3, 12, 12), False, False),
+]
+
+
+@pytest.mark.parametrize("case", PIPELINE_CASES, ids=[
+    f"{c[0]}-{c[1]}-k{c[2]}s{c[3]}-{'x'.join(map(str, c[4]))}"
+    f"{'-wide' if c[5] else ''}{'' if c[6] else '-plain'}"
+    for c in PIPELINE_CASES])
+def test_conv_pipeline_tiles_equal_plain(cuda, case):
+    cin, cout, k, stride, shape, wide, silu = case
+    rng = np.random.default_rng(hash(case) % 2 ** 32)
+    x, c = _random_conv(rng, cin, cout, k, stride, shape, wide, silu)
+    sig = DeviceLut(sigmoid_lut(6.0, 8), cuda)
+    _assert_conv_equals_plain(x, c, sig)
+
+
+@pytest.mark.parametrize("model", ["yolov8n", "yolov8m", "yolov8m-p6"])
+def test_conv_pipeline_every_conv_shape_of_the_benchmark_models(cuda, model):
+    """Every conv of the model's graph at its published widths (small maps,
+    B=2), on int8 input and, where Cin % 16 == 0, on wide int16 input: one
+    launch each, on the loader its input takes, equal to conv_plain."""
+    graph = build_yolov8_graph(QuantConfig(model=model, image_size=64))
+    sig = DeviceLut(sigmoid_lut(6.0, 8), cuda)
+    rng = np.random.default_rng(len(model))
+    shapes = sorted({(n.cin, n.cout, n.kernel, n.stride, n.silu)
+                     for n in graph.convs()})
+    fused_ops.reset_counts()
+    for cin, cout, k, stride, silu in shapes:
+        for wide in (False, True) if cin % 16 == 0 else (False,):
+            x, c = _random_conv(rng, cin, cout, k, stride, (2, 9, 7), wide,
+                                silu)
+            _assert_conv_equals_plain(x, c, sig)
+    assert sum(fused_ops.LAUNCHES[k] for k in
+               ("conv_vector", "conv_wide", "conv_gather")) \
+        == fused_ops.LAUNCHES["conv1x1"] + fused_ops.LAUNCHES["conv3x3"]
+    assert fused_ops.LAUNCHES["conv_gather"] == 1     # the Cin = 3 stem
 
 
 @pytest.mark.parametrize("amax,sign", [(127, 1), (127, -1), (381, 1),
@@ -99,9 +187,12 @@ def test_conv_kernel_accumulator_extremes(cuda, amax, sign):
                    dtype=torch.int16 if amax > 127 else torch.int8)
     c = fused_ops.conv_entry(np.full((32, 256, 3, 3), 127),
                              np.full(32, sign * 2 ** 15), 1, 1, False, cuda)
+    loader = fused_ops.conv_loader(x, 256)
+    before = fused_ops.LAUNCHES[loader]
     got = fused_ops.conv3x3(x, c)
     want = fused_ops.conv_plain(x, c, None, 127)
     torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES[loader] == before + 1
     assert torch.equal(got, want)
     assert int(got[:, 1:-1, 1:-1].min() * sign) == amax * 127 * 2304 + 2 ** 15
 
