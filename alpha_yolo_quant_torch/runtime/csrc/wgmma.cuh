@@ -106,7 +106,12 @@ __device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
 }
 // Waits for the completion of the barrier's phase of this parity. A phase
 // that never completes is a fault of the kernel: trap (the launch fails with
-// an error) instead of hanging the card.
+// an error) instead of hanging the card. The margin: a failed try_wait
+// suspends the thread for about 7,790 cycles before it returns, so 2^22
+// polls take 16.4 s on an H100 at 700 W, with 1 thread or 132 blocks of 384
+// polling. A wait lies within its kernel's run, and the longest conv kernel
+// of the benchmark cells (yolov8m's stem at B=128) takes 2.9 ms: over 5,000
+// times less.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   for (uint32_t n = 0; !mbar_try(bar, parity);)
     if (++n == (1u << 22)) __trap();
@@ -142,6 +147,40 @@ __device__ __forceinline__ void regs_inc() {
 
 #define AYQ_R4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
 #define AYQ_R8(i) AYQ_R4(i), AYQ_R4(i + 4)
+// AYQ_LH: the operand list "%0, ..., %(H-1)" of H accumulators; AYQ_DH:
+// their "+r" constraints, d[0] .. d[H-1]. H = N/2, a multiple of 8.
+#define AYQ_L8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define AYQ_D8 AYQ_R8(0)
+#define AYQ_L16 AYQ_L8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define AYQ_D16 AYQ_D8, AYQ_R8(8)
+#define AYQ_L24 AYQ_L16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define AYQ_D24 AYQ_D16, AYQ_R8(16)
+#define AYQ_L32 AYQ_L24 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define AYQ_D32 AYQ_D24, AYQ_R8(24)
+#define AYQ_L40 AYQ_L32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define AYQ_D40 AYQ_D32, AYQ_R8(32)
+#define AYQ_L48 AYQ_L40 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define AYQ_D48 AYQ_D40, AYQ_R8(40)
+#define AYQ_L56 AYQ_L48 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define AYQ_D56 AYQ_D48, AYQ_R8(48)
+#define AYQ_L64 AYQ_L56 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define AYQ_D64 AYQ_D56, AYQ_R8(56)
+#define AYQ_L72 AYQ_L64 ", %64, %65, %66, %67, %68, %69, %70, %71"
+#define AYQ_D72 AYQ_D64, AYQ_R8(64)
+#define AYQ_L80 AYQ_L72 ", %72, %73, %74, %75, %76, %77, %78, %79"
+#define AYQ_D80 AYQ_D72, AYQ_R8(72)
+#define AYQ_L88 AYQ_L80 ", %80, %81, %82, %83, %84, %85, %86, %87"
+#define AYQ_D88 AYQ_D80, AYQ_R8(80)
+#define AYQ_L96 AYQ_L88 ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define AYQ_D96 AYQ_D88, AYQ_R8(88)
+#define AYQ_L104 AYQ_L96 ", %96, %97, %98, %99, %100, %101, %102, %103"
+#define AYQ_D104 AYQ_D96, AYQ_R8(96)
+#define AYQ_L112 AYQ_L104 ", %104, %105, %106, %107, %108, %109, %110, %111"
+#define AYQ_D112 AYQ_D104, AYQ_R8(104)
+#define AYQ_L120 AYQ_L112 ", %112, %113, %114, %115, %116, %117, %118, %119"
+#define AYQ_D120 AYQ_D112, AYQ_R8(112)
+#define AYQ_L128 AYQ_L120 ", %120, %121, %122, %123, %124, %125, %126, %127"
+#define AYQ_D128 AYQ_D120, AYQ_R8(120)
 #define AYQ_WGMMA(N, AT, REGS, DA, DB, P)                                                \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\nwgmma.mma_async.sync.aligned.m64n" #N \
   "k32.s32." AT ".s8 {" REGS "}, %" DA ", %" DB ", p;\n}\n"
@@ -153,151 +192,74 @@ __device__ __forceinline__ void regs_inc() {
 template <int N, bool U8A>
 struct Mma;
 
-#define AYQ_MMA(N, REGS, DA, DB, P, ...)                                                  \
+// N columns, H = N/2 accumulators, then the operand numbers of the two
+// descriptors and of the scale-d flag: H, H + 1 and H + 2.
+#define AYQ_MMA(N, H, DA, DB, P)                                                          \
   template <bool U8A>                                                                     \
   struct Mma<N, U8A> {                                                                    \
     static __device__ __forceinline__ void run(int* d, uint64_t da, uint64_t db) {        \
       if constexpr (U8A)                                                                  \
-        asm volatile(AYQ_WGMMA(N, "u8", REGS, DA, DB, P)                                  \
-                     : __VA_ARGS__                                                        \
+        asm volatile(AYQ_WGMMA(N, "u8", AYQ_L##H, DA, DB, P)                              \
+                     : AYQ_D##H                                                           \
                      : "l"(da), "l"(db), "r"(1));                                         \
       else                                                                                \
-        asm volatile(AYQ_WGMMA(N, "s8", REGS, DA, DB, P)                                  \
-                     : __VA_ARGS__                                                        \
+        asm volatile(AYQ_WGMMA(N, "s8", AYQ_L##H, DA, DB, P)                              \
+                     : AYQ_D##H                                                           \
                      : "l"(da), "l"(db), "r"(1));                                         \
     }                                                                                     \
   }
 
-AYQ_MMA(16, "%0, %1, %2, %3, %4, %5, %6, %7", "8", "9", "10",
-        AYQ_R8(0));
-AYQ_MMA(32, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15", "16", "17", "18",
-        AYQ_R8(0), AYQ_R8(8));
-AYQ_MMA(48, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23", "24", "25", "26",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16));
-AYQ_MMA(64, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31", "32", "33", "34",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24));
-AYQ_MMA(80, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39", "40", "41", "42",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32));
-AYQ_MMA(96, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47", "48", "49", "50",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40));
-AYQ_MMA(112, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55", "56", "57", "58",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48));
-AYQ_MMA(128, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63", "64", "65", "66",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48), AYQ_R8(56));
-AYQ_MMA(144, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71", "72", "73", "74",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64));
-AYQ_MMA(160, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79", "80", "81", "82",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72));
-AYQ_MMA(176, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-        "%84, %85, %86, %87", "88", "89", "90",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80));
-AYQ_MMA(192, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95", "96", "97", "98",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88));
-AYQ_MMA(208, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103", "104", "105", "106",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88),
-        AYQ_R8(96));
-AYQ_MMA(224, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-        "%108, %109, %110, %111", "112", "113", "114",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88),
-        AYQ_R8(96), AYQ_R8(104));
-AYQ_MMA(240, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119", "120", "121", "122",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88),
-        AYQ_R8(96), AYQ_R8(104), AYQ_R8(112));
-AYQ_MMA(256, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-        "%120, %121, %122, %123, %124, %125, %126, %127", "128", "129", "130",
-        AYQ_R8(0), AYQ_R8(8), AYQ_R8(16), AYQ_R8(24), AYQ_R8(32), AYQ_R8(40),
-        AYQ_R8(48), AYQ_R8(56), AYQ_R8(64), AYQ_R8(72), AYQ_R8(80), AYQ_R8(88),
-        AYQ_R8(96), AYQ_R8(104), AYQ_R8(112), AYQ_R8(120));
-
+AYQ_MMA(16, 8, "8", "9", "10");
+AYQ_MMA(32, 16, "16", "17", "18");
+AYQ_MMA(48, 24, "24", "25", "26");
+AYQ_MMA(64, 32, "32", "33", "34");
+AYQ_MMA(80, 40, "40", "41", "42");
+AYQ_MMA(96, 48, "48", "49", "50");
+AYQ_MMA(112, 56, "56", "57", "58");
+AYQ_MMA(128, 64, "64", "65", "66");
+AYQ_MMA(144, 72, "72", "73", "74");
+AYQ_MMA(160, 80, "80", "81", "82");
+AYQ_MMA(176, 88, "88", "89", "90");
+AYQ_MMA(192, 96, "96", "97", "98");
+AYQ_MMA(208, 104, "104", "105", "106");
+AYQ_MMA(224, 112, "112", "113", "114");
+AYQ_MMA(240, 120, "120", "121", "122");
+AYQ_MMA(256, 128, "128", "129", "130");
 
 #undef AYQ_MMA
 #undef AYQ_WGMMA
+#undef AYQ_L8
+#undef AYQ_D8
+#undef AYQ_L16
+#undef AYQ_D16
+#undef AYQ_L24
+#undef AYQ_D24
+#undef AYQ_L32
+#undef AYQ_D32
+#undef AYQ_L40
+#undef AYQ_D40
+#undef AYQ_L48
+#undef AYQ_D48
+#undef AYQ_L56
+#undef AYQ_D56
+#undef AYQ_L64
+#undef AYQ_D64
+#undef AYQ_L72
+#undef AYQ_D72
+#undef AYQ_L80
+#undef AYQ_D80
+#undef AYQ_L88
+#undef AYQ_D88
+#undef AYQ_L96
+#undef AYQ_D96
+#undef AYQ_L104
+#undef AYQ_D104
+#undef AYQ_L112
+#undef AYQ_D112
+#undef AYQ_L120
+#undef AYQ_D120
+#undef AYQ_L128
+#undef AYQ_D128
 #undef AYQ_R8
 #undef AYQ_R4
 

@@ -13,9 +13,11 @@ Phases (each one raises on failure; nothing falls back to the CPU):
   3. hold every kernel against its plain PyTorch version on the card,
      max|diff| must be 0: conv1x1/conv3x3 on all 63 conv shapes of the
      graph at B=2 (int16 input on the wide edges) and on every conv shape
-     of yolov8m and yolov8m-p6 (128 px maps, int8 and int16 input), each
-     launch counted under the loader its input takes (conv_vector,
-     conv_wide, conv_gather); then time kernel and
+     of yolov8m and yolov8m-p6 (128 px maps, int8 and int16 input), then
+     each distinct conv shape of the two at its cell's maps (640 and 1280
+     px) at a batch that gives every block of the persistent grid 3 tiles
+     or more, each launch counted under the loader its input takes
+     (conv_vector, conv_wide, conv_gather); then time kernel and
      plain with CUDA events: the conv kernels at shapes read from the
      graph IR at B=8 and B=128, with torch._int_mm on the same int8
      product as the yardstick, the postconv epilogues on the nibble-split
@@ -302,8 +304,8 @@ def check_every_conv_shape(model, sig, batch: int = 2) -> None:
     graph at its own shape, int16 input where the model marks the input
     edge wide (edge_amax_int > 127); then every conv of the yolov8m and
     yolov8m-p6 graphs (published widths, 128 px maps) on int8 input and,
-    where Cin % 16 == 0, on int16 input. Each launch is counted under the
-    loader its input takes."""
+    where Cin % 16 == 0, on int16 input; then check_busy_conv_shapes.
+    Each launch is counted under the loader its input takes."""
     from alpha_yolo_quant_torch.config import QuantConfig
     from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
 
@@ -339,6 +341,68 @@ def check_every_conv_shape(model, sig, batch: int = 2) -> None:
         log(f"kernel conv1x1/conv3x3: all {len(graph.convs())} conv shapes "
             f"of the {name} graph (128px maps, B={batch}) equal conv_plain, "
             f"launches by loader {seen} in {time.perf_counter() - t0:.1f} s")
+    check_busy_conv_shapes(sig)
+
+
+def busy_batch(rows: int, cout: int, blocks: int, per_block: int = 3):
+    """(batch, tiles): the smallest batch (2 or more) of a conv with `rows`
+    output pixels an image at which its tiles (conv_igemm.cuh: 64 rows x
+    tile_n(cout) columns) number at least per_block times the persistent
+    grid's blocks, so that both consumer warpgroups of every block take
+    tiles and the ring laps from one tile to the next."""
+    from alpha_yolo_quant_torch.runtime import fused_ops
+
+    n_tiles = -(-cout // fused_ops.tile_n(cout))
+    b = 2
+    while -(-b * rows // 64) * n_tiles < per_block * blocks:
+        b += 1
+    return b, -(-b * rows // 64) * n_tiles
+
+
+def check_busy_conv_shapes(sig) -> None:
+    """Phase 3a, at the benchmark cells' maps: every distinct conv shape
+    of yolov8m at 640 px and yolov8m-p6 at 1280 px (their widths give the
+    tiles 48, 96, 144 and 192, and 288-576 channels over 2 and 3 column
+    tiles) on int8 and, where Cin % 16 == 0, int16 input, each at
+    busy_batch: at least 3 tiles for every block of the grid (one per SM).
+    Each against conv_plain (max|diff| 0) and counted under its loader."""
+    import torch
+
+    from alpha_yolo_quant_torch.config import QuantConfig
+    from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
+
+    dev = sig.values.device
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, size, _ in GLUE_CELLS[1:]:
+        t0 = time.perf_counter()
+        graph = build_yolov8_graph(QuantConfig(model=name, image_size=size))
+        geo = edge_geometry(graph)
+        seen = dict.fromkeys(LOADERS, 0)
+        shapes, fewest = set(), None
+        for i, node in enumerate(graph.convs()):
+            hw = geo[node.src][1]
+            key = (node.cin, node.cout, node.kernel, node.stride,
+                   node.padding, node.silu, hw)
+            if key in shapes:
+                continue
+            shapes.add(key)
+            ho = (hw + 2 * node.padding - node.kernel) // node.stride + 1
+            batch, tiles = busy_batch(ho * ho, node.cout, blocks)
+            fewest = tiles if fewest is None else min(fewest, tiles)
+            for is_wide in (False, True) if node.cin % 16 == 0 else (False,):
+                x, c = random_conv_case(node, hw, batch, is_wide, node.silu,
+                                        seed=700 + i, device=dev)
+                seen[counted_conv(x, c, sig, f"{name} {size}px {node.name} "
+                                  f"B={batch} {'int16' if is_wide else 'int8'}"
+                                  )] += 1
+                del x, c
+        torch.cuda.empty_cache()
+        log(f"kernel conv1x1/conv3x3: all {len(shapes)} distinct conv shapes "
+            f"of the {name} graph at {size} px, each at a batch of at least "
+            f"3 tiles a block ({blocks} blocks; fewest {fewest / blocks:.1f} a "
+            f"block) equal conv_plain, launches by loader {seen} in "
+            f"{time.perf_counter() - t0:.1f} s")
+
 
 
 def check_conv_kernels(graph, sig, res, batch: int, reps: int):
