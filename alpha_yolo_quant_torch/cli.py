@@ -577,7 +577,9 @@ def cmd_demo(args):
 def cmd_info(args):
     """Model/plan summary: layers, channels, taps, scales."""
     from alpha_yolo_quant_torch.hwsim.sram import simulate
-    from alpha_yolo_quant_torch.models.graph import build_yolov8_graph
+    from alpha_yolo_quant_torch.models.graph import (
+        build_yolov8_graph, dense_graph,
+    )
 
     cfg = _cfg(args)
     graph = build_yolov8_graph(cfg)
@@ -600,6 +602,10 @@ def cmd_info(args):
         print("\ncalibration (tap: a):")
         for name, v in max_a.items():
             print(f"  {name:<20} {v:.6g}")
+    if not dense_graph(graph):
+        print("\nSRAM plan: none (the SRAM schedule has no depthwise conv "
+              "and no attention)")
+        return
     sim = simulate(graph, cfg.image_size)
     print(f"\nSRAM plan: peak {sim.peak_cells} cells "
           f"({sim.peak_rows} rows of 8)")

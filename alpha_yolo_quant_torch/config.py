@@ -37,6 +37,23 @@ _MODEL_SCALES = {
 P6_SUFFIX = "-p6"
 _MODEL_SCALES.update({m + P6_SUFFIX: s
                       for m, s in list(_MODEL_SCALES.items())})
+# YOLO11 (ultralytics/cfg/models/11/yolo11.yaml): the yaml's [depth, width,
+# max_channels] scales (ratio = max_channels / 512) over the C3k2 / C2PSA
+# graph; detect_cls_channels = max(P3 width, 80), the non-legacy Detect's
+# cls width (models/graph.py build_yolo11_graph)
+YOLO11_PREFIX = "yolo11"
+_MODEL_SCALES.update({
+    "yolo11n": dict(depth=0.50, width=0.25, ratio=2.0,
+                    detect_cls_channels=80),
+    "yolo11s": dict(depth=0.50, width=0.50, ratio=2.0,
+                    detect_cls_channels=128),
+    "yolo11m": dict(depth=0.50, width=1.00, ratio=1.0,
+                    detect_cls_channels=256),
+    "yolo11l": dict(depth=1.00, width=1.00, ratio=1.0,
+                    detect_cls_channels=256),
+    "yolo11x": dict(depth=1.00, width=1.50, ratio=1.0,
+                    detect_cls_channels=384),
+})
 MODELS = tuple(_MODEL_SCALES)
 
 
@@ -47,7 +64,8 @@ class QuantConfig:
     Attributes:
       model: "yolov8n" | "yolov8s" (reference stage_0.py:4, MODEL_NAME) or
         the extension scales "yolov8m" | "yolov8l" | "yolov8x"; each with
-        the suffix "-p6" for the four-level YOLOv8-P6 graph.
+        the suffix "-p6" for the four-level YOLOv8-P6 graph; or
+        "yolo11n" ... "yolo11x", the YOLO11 graph.
       k: activation/weight bit width K (reference stage_0.py:7).
       calib_mode: reduction applied to per-layer calibration stats
         ("max" | "mode" | "median" | "std" | "n=<int>" | "min_mae";
@@ -132,6 +150,11 @@ class QuantConfig:
         return self.model.endswith(P6_SUFFIX)
 
     @property
+    def yolo11(self) -> bool:
+        """The YOLO11 graph (C3k2, C2PSA, depthwise convs in Detect)."""
+        return self.model.startswith(YOLO11_PREFIX)
+
+    @property
     def detect_cls_channels(self) -> int:
         """Hidden width of the classification ("down") detect branch
         (reference stage_0.py:24,29 `detect_1_channels`)."""
@@ -152,8 +175,12 @@ class QuantConfig:
     @property
     def main_dir_name(self) -> str:
         """Artifact directory name (reference stage_0.py:14-17 for n/s;
-        medium/large/xlarge extend the scheme, and P6 models add "_p6")."""
+        medium/large/xlarge extend the scheme, P6 models add "_p6" and
+        YOLO11 models "_yolo11")."""
         base = self.model[:-len(P6_SUFFIX)] if self.p6 else self.model
+        if self.yolo11:
+            base = "yolov8" + base[len(YOLO11_PREFIX):]
         suffix = {"yolov8n": "nano", "yolov8s": "small", "yolov8m": "medium",
                   "yolov8l": "large", "yolov8x": "xlarge"}[base]
-        return f"{self.k}_{suffix}" + ("_p6" if self.p6 else "")
+        return (f"{self.k}_{suffix}" + ("_p6" if self.p6 else "")
+                + ("_yolo11" if self.yolo11 else ""))

@@ -30,7 +30,7 @@ from alpha_yolo_quant_torch.export.pickles import (
 )
 from alpha_yolo_quant_torch.models.graph import (
     ConcatNode, ConvNode, MaxPoolNode, ResidualAddNode,
-    require_contract_levels,
+    require_contract_levels, require_dense_graph,
 )
 from alpha_yolo_quant_torch.quantize.transform import QuantizedModel
 
@@ -107,9 +107,11 @@ def export_all(model: QuantizedModel, env: Dict[str, np.ndarray],
     """Write every artifact for one golden-image run.
 
     env: the edge environment from runtime.golden.golden_forward (int64).
-    Refuses a graph with other detect levels than the contract's (P6).
+    Refuses a graph with other detect levels than the contract's (P6),
+    and one with depthwise convs or attention (YOLO11).
     """
     require_contract_levels(model.graph, "export")
+    require_dense_graph(model.graph, "export")
     make_dirs(out_dir)
     cfg = model.cfg
     k = cfg.k

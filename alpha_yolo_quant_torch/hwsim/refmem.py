@@ -42,7 +42,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from alpha_yolo_quant_torch.models.graph import (
-    Graph, require_contract_levels,
+    Graph, require_contract_levels, require_dense_graph,
 )
 
 COLUMNS = 8
@@ -225,8 +225,10 @@ def simulate_stage8_memory(graph: Graph, image_size: int = 640
     """Replay the reference's annotated schedule for this graph's
     shapes. Channel widths come from the graph's conv nodes, so the
     yolov8s widths replay identically. Refuses a graph with other detect
-    levels than the contract's (P6): the schedule has three."""
+    levels than the contract's (P6): the schedule has three; and one with
+    depthwise convs or attention (YOLO11), which it has not."""
     require_contract_levels(graph, "hwsim")
+    require_dense_graph(graph, "hwsim")
     cout = {n.name: n.cout for n in graph.convs()}
     cfg = graph.cfg
     s = image_size

@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 from alpha_yolo_quant_torch.models.graph import (
     ConcatNode, ConvNode, Graph, MaxPoolNode, ResidualAddNode, SplitNode,
-    UpsampleNode,
+    UpsampleNode, require_dense_graph,
 )
 
 COLUMNS = 8
@@ -244,7 +244,10 @@ def simulate(graph: Graph, image_size: int = 640,
              total_cells: int = DEFAULT_CELLS) -> SramSim:
     """Walk the IR once, applying the reference lifetime policies (frees
     guarded by last-use analysis so multi-consumer tensors — the neck and
-    head skip connections — survive until their final reader)."""
+    head skip connections — survive until their final reader). Refuses a
+    graph with depthwise convs or attention (YOLO11): the policies have
+    neither."""
+    require_dense_graph(graph, "hwsim")
     sim = SramSim(total_cells)
     hw: Dict[str, Tuple[int, int, int]] = {
         graph.input_edge: (3, image_size, image_size)}

@@ -8,11 +8,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from alpha_yolo_quant_torch.models.graph import (
-    ConcatNode, ConvNode, Graph, MaxPoolNode, ResidualAddNode, SplitNode,
-    UpsampleNode,
+    AttentionNode, ConcatNode, ConvNode, Graph, MaxPoolNode, ResidualAddNode,
+    SplitNode, UpsampleNode,
 )
 from alpha_yolo_quant_torch.ops.nn import (
-    conv2d_f32, maxpool2d, silu, upsample_nearest,
+    attention_f32, conv2d_f32, maxpool2d, silu, upsample_nearest,
 )
 
 
@@ -25,11 +25,13 @@ def forward_float(graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
 
     Returns (outputs, taps): the six raw head tensors by role, and with
     collect_taps the per-image max-abs of every conv's pre-activation
-    output by tap name (plus 'start' for the input). ``capture``: a dict
-    whose keys are tap names; each is set to that conv's whole
-    pre-activation output. ``conv(x, w, b, stride, padding)`` runs each
-    conv (the tensor-parallel forward of parallel/mesh.py passes one that
-    computes this rank's output channels and gathers the rest).
+    output by tap name (plus 'start' for the input), and of each
+    attention node's logits and output under its tap and out_tap.
+    ``capture``: a dict whose keys are tap names; each is set to that
+    conv's whole pre-activation output. ``conv(x, w, b, stride,
+    padding)`` runs each dense conv (the tensor-parallel forward of
+    parallel/mesh.py passes one that computes this rank's output channels
+    and gathers the rest); a depthwise conv runs whole here.
 
     On CUDA this turns TF32 off for convolutions and matmuls
     (torch.backends.cudnn.allow_tf32 and
@@ -51,8 +53,12 @@ def forward_float(graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
     for node in graph.nodes:
         if isinstance(node, ConvNode):
             p = params[node.key]
-            out = conv(env[node.src], p["w"], p["b"], node.stride,
-                       node.padding)
+            if node.groups > 1:
+                out = conv2d_f32(env[node.src], p["w"], p["b"], node.stride,
+                                 node.padding, node.groups)
+            else:
+                out = conv(env[node.src], p["w"], p["b"], node.stride,
+                           node.padding)
             record(node.tap, out)
             if capture is not None and node.tap in capture:
                 capture[node.tap] = out
@@ -70,6 +76,12 @@ def forward_float(graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
                                       node.stride, node.padding)
         elif isinstance(node, UpsampleNode):
             env[node.dst] = upsample_nearest(env[node.src], node.factor)
+        elif isinstance(node, AttentionNode):
+            logits, out, v = attention_f32(env[node.src], node.heads,
+                                           node.key_dim, node.head_dim)
+            record(node.tap, logits)
+            record(node.out_tap, out)
+            env[node.dst], env[node.v_dst] = out, v
         else:  # pragma: no cover
             raise TypeError(type(node))
     outputs = {role: env[e] for role, e in graph.outputs.items()}

@@ -36,7 +36,14 @@ class ConvNode:
     out_tap: the tap whose calibrated value the quantized pipeline uses to
       requantize this node's SiLU output (the `a_silu` argument threaded
       through reference stage_6.py; by the reference's convention it is the
-      *next* conv's own tap).
+      *next* conv's own tap). A plain conv (silu False) with an out_tap is
+      a conv inside the network (YOLO11's attention and FFN convs): its
+      accumulator is requantized to int8 at out_tap, its own tap. A plain
+      conv without one is a head conv: its raw int32 accumulator is the
+      output.
+    cin: input channels of one group, the weight's second dimension
+      (PyTorch's per-group shape): the edge's channels for a dense conv,
+      1 for a depthwise one (DepthwiseConvNode).
     """
 
     name: str
@@ -51,6 +58,51 @@ class ConvNode:
     silu: bool = True
     tap: Optional[str] = None
     out_tap: Optional[str] = None
+
+    @property
+    def requant_out(self) -> bool:
+        """A plain conv inside the network: int8 output at out_tap."""
+        return not self.silu and self.out_tap is not None
+
+    @property
+    def groups(self) -> int:
+        """1; cout for a depthwise conv, the only grouped one."""
+        return 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthwiseConvNode(ConvNode):
+    """A depthwise conv (YOLO11's DWConv and the attention's pe): groups =
+    cout channels, each conv'd with its own (1, k, k) weights, so cin is
+    1. The only grouped conv the graphs hold."""
+
+    @property
+    def groups(self) -> int:
+        return self.cout
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionNode:
+    """Multi-head self-attention over the pixels of one map (ultralytics
+    Attention, the PSABlock of YOLO11's C2PSA).
+
+    src is the qkv conv's output: head h owns channels h * (2 * key_dim +
+    head_dim) + [0, key_dim) as q, the next key_dim as k and the last
+    head_dim as v (ultralytics' view(B, heads, 2 * key_dim + head_dim,
+    N)). dst is v . softmax(q^T k * key_dim^-0.5)^T, and v_dst the v
+    channels alone (the pe conv's input), both in channel h * head_dim +
+    d. tap: the calibration of the logits q^T k * key_dim^-0.5; out_tap:
+    the calibration of dst."""
+
+    name: str
+    src: str
+    dst: str
+    v_dst: str
+    heads: int
+    key_dim: int
+    head_dim: int
+    tap: str
+    out_tap: str
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +171,7 @@ class UpsampleNode:
 
 
 Node = Union[ConvNode, SplitNode, ResidualAddNode, ConcatNode,
-             MaxPoolNode, UpsampleNode]
+             MaxPoolNode, UpsampleNode, AttentionNode]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +190,9 @@ class Graph:
 
     def convs(self) -> List[ConvNode]:
         return [n for n in self.nodes if isinstance(n, ConvNode)]
+
+    def attentions(self) -> List[AttentionNode]:
+        return [n for n in self.nodes if isinstance(n, AttentionNode)]
 
     def conv_by_name(self, name: str) -> ConvNode:
         for n in self.convs():
@@ -177,6 +232,26 @@ def require_contract_levels(graph: Graph, what: str) -> None:
             f"{', '.join(graph.levels)}")
 
 
+def dense_graph(graph: Graph) -> bool:
+    """No depthwise conv and no attention: the YOLOv8 graphs."""
+    return not (graph.attentions() or any(n.groups > 1
+                                          for n in graph.convs()))
+
+
+def require_dense_graph(graph: Graph, what: str) -> None:
+    """Refuse, naming ``what``, a graph with depthwise convs or attention
+    (YOLO11): the hardware contract (the Verilog tree, the SRAM schedule,
+    the checkpoint remap) and the slab and nibble-split engines have
+    neither."""
+    if not dense_graph(graph):
+        dw = sum(n.groups > 1 for n in graph.convs())
+        att = len(graph.attentions())
+        raise ValueError(
+            f"{what}: the hardware contract has dense convs and no "
+            f"attention; {graph.cfg.model} has {dw} depthwise convs and "
+            f"{att} attention nodes")
+
+
 def _c(x: float) -> int:
     return int(x)
 
@@ -209,10 +284,13 @@ def build_yolov8_graph(cfg: QuantConfig) -> Graph:
     well-defined at any depth.
 
     A P6 model name (``cfg.p6``) builds the four-level graph instead
-    (build_yolov8_p6_graph).
+    (build_yolov8_p6_graph), a YOLO11 name (``cfg.yolo11``) the YOLO11
+    graph (build_yolo11_graph).
     """
     if cfg.p6:
         return build_yolov8_p6_graph(cfg)
+    if cfg.yolo11:
+        return build_yolo11_graph(cfg)
     w, r, d = cfg.width, cfg.ratio, cfg.depth
     # bottlenecks per block (reference stage_1.py n_2/n_4/...; ultralytics
     # max(round(n*d), 1))
@@ -607,6 +685,252 @@ def build_yolov8_p6_graph(cfg: QuantConfig) -> Graph:
                  outputs=outputs)
 
 
+def build_yolo11_graph(cfg: QuantConfig) -> Graph:
+    """YOLO11 as ultralytics/cfg/models/11/yolo11.yaml declares it (yaml
+    layer i below), at the configured scale; the modules are those of
+    ultralytics/nn/modules/{block,conv,head}.py.
+
+    Backbone (0-10): Conv(64, 3, 2), Conv(128, 3, 2), C3k2(256, e=0.25),
+    Conv(256, 3, 2), C3k2(512, e=0.25), Conv(512, 3, 2), C3k2(512),
+    Conv(1024, 3, 2), C3k2(1024), SPPF(1024, 5), C2PSA(1024). Neck
+    (11-22): upsample, concat with layer 6, C3k2(512); upsample, concat
+    with 4, C3k2(256) (P3); Conv(256, 3, 2), concat with 13, C3k2(512)
+    (P4); Conv(512, 3, 2), concat with 10, C3k2(1024) (P5). Detect (23)
+    over P3-P5 in its non-legacy form. A stage of c channels is
+    min(c, max_channels) * width wide, rounded up to 8; a block of n
+    repeats has max(round(n * depth), 1).
+
+    C3k2(c2, c3k, e): a C2f whose cv1 (1x1 to 2c, c = c2 * e) is split in
+    halves; n inner blocks run in sequence on the second half, each a
+    C3k(c, c, 2) where c3k holds (every block at the m, l and x scales,
+    layers 6, 8 and 22 at every scale), else a Bottleneck(c, c, k=3/3,
+    e=0.5); cv2 is a 1x1 conv over cat(halves, every inner output). The
+    shortcut is on in every block. C3k: cv3(cat(m(cv1 x), cv2 x)), cv1
+    and cv2 1x1 to c/2, m two Bottlenecks 3x3/3x3 at e=1.0. A Bottleneck
+    adds its input to cv2(cv1 x).
+
+    C2PSA(c): cv1 (1x1 to c) split into a and b, n PSABlocks on b, cv2
+    over cat(a, b). PSABlock: x = x + Attention(x), x = x + ffn(x), ffn a
+    1x1 conv to 2c with SiLU and a plain 1x1 conv back. Attention over
+    heads = c // 64, head_dim 64, key_dim 32: qkv a plain 1x1 conv to
+    c + 2 * key_dim * heads, the AttentionNode, pe a plain depthwise 3x3
+    conv of v, added to the attention's output, and proj a plain 1x1
+    conv.
+
+    Detect: per level a box branch Conv(x, c_box, 3), Conv(c_box, c_box,
+    3), Conv2d(c_box, 64, 1), c_box = max(16, P3 // 4, 64), and a cls
+    branch DWConv(x, x, 3), Conv(x, c_cls, 1), DWConv(c_cls, c_cls, 3),
+    Conv(c_cls, c_cls, 1), Conv2d(c_cls, 80, 1), c_cls = max(P3, 80).
+    DWConv is a depthwise 3x3 conv with SiLU.
+
+    Scale rules are the three-level graph's: an inner block's output is
+    requantized into cv1's scale at its C3k2's concat and cv2's output
+    into the bottleneck chain's at a C3k's; a residual sum takes its
+    input's scale; an FPN-up concat takes the skip's scale; the two
+    PAN-down seams take the full-quant 6b direction (stage8_concat_flow
+    the other); the third residual sum is clipped. The attention's pe is
+    requantized into the attention output's scale at their sum.
+
+    Naming: a conv's name starts with its yaml module and layer
+    (``C3k2_6_m0_m1_cv2``, ``C2PSA_10_m0_qkv``, ``Detect_p3_cls_2``);
+    keys are the ultralytics state-dict prefixes (``model.6.m.0.m.1.cv2.
+    conv``, ``model.23.cv3.0.1.0.conv``...). Each conv's tap is its name.
+    A SiLU conv's out_tap is the tap of the next conv in graph order,
+    except the last neck block's cv2, whose out_tap is the first conv of
+    its level's cls head (as P6); a plain conv inside the network has its
+    own tap; the head's plain convs none.
+    """
+    w, d, mc = cfg.width, cfg.depth, cfg.max_channels
+
+    def ch(c: int) -> int:
+        return -(-int(min(c, mc) * w) // 8) * 8
+
+    def reps(n: int) -> int:
+        return max(int(round(n * d)), 1)
+
+    # parse_model turns c3k on in every C3k2 at the m, l and x scales
+    c3k_all = cfg.model[-1] in "mlx"
+    nodes: List[Node] = []
+
+    def conv(name, key, src, dst, cin, cout, k=1, s=1, silu=True,
+             node=ConvNode):
+        nodes.append(node(name=name, key=key, src=src, dst=dst, cin=cin,
+                          cout=cout, kernel=k, stride=s, padding=k // 2,
+                          silu=silu, tap=name))
+
+    def dwconv(name, key, src, dst, c, silu=True):
+        conv(name, key, src, dst, 1, c, 3, silu=silu, node=DepthwiseConvNode)
+
+    def bottleneck(prefix, m, src, dst, c, e):
+        c_ = int(c * e)
+        conv(f"{prefix}_cv1", f"{m}.cv1.conv", src, f"{dst}.0", c, c_, 3)
+        conv(f"{prefix}_cv2", f"{m}.cv2.conv", f"{dst}.0", f"{dst}.1", c_,
+             c, 3)
+        nodes.append(ResidualAddNode(src=f"{dst}.1", base=src, dst=dst,
+                                     label=f"{prefix}_add"))
+
+    def c3k(prefix, m, src, dst, c):
+        c_ = c // 2
+        conv(f"{prefix}_cv1", f"{m}.cv1.conv", src, f"{dst}.a", c, c_)
+        conv(f"{prefix}_cv2", f"{m}.cv2.conv", src, f"{dst}.b", c, c_)
+        prev = f"{dst}.a"
+        for j in range(2):
+            bottleneck(f"{prefix}_m{j}", f"{m}.m.{j}", prev, f"{dst}.m{j}",
+                       c_, 1.0)
+            prev = f"{dst}.m{j}"
+        nodes.append(ConcatNode((prev, f"{dst}.b"), scale_from=prev,
+                                dst=f"{dst}.cat", label=f"{prefix}_cat"))
+        conv(f"{prefix}_cv3", f"{m}.cv3.conv", f"{dst}.cat", dst, 2 * c_, c)
+
+    def c3k2(i, src, dst, c1, c2, inner_c3k, e=0.5):
+        prefix, m = f"C3k2_{i}", f"model.{i}"
+        c = int(c2 * e)
+        conv(f"{prefix}_cv1", f"{m}.cv1.conv", src, f"{dst}.c0", c1, 2 * c)
+        nodes.append(SplitNode(f"{dst}.c0", f"{dst}.x1", f"{dst}.x2"))
+        parts = [f"{dst}.x1", f"{dst}.x2"]
+        for j in range(reps(2)):
+            if inner_c3k or c3k_all:
+                c3k(f"{prefix}_m{j}", f"{m}.m.{j}", parts[-1],
+                    f"{dst}.m{j}", c)
+            else:
+                bottleneck(f"{prefix}_m{j}", f"{m}.m.{j}", parts[-1],
+                           f"{dst}.m{j}", c, 0.5)
+            parts.append(f"{dst}.m{j}")
+        nodes.append(ConcatNode(tuple(parts), scale_from=f"{dst}.c0",
+                                dst=f"{dst}.cat", label=f"{prefix}_cat"))
+        conv(f"{prefix}_cv2", f"{m}.cv2.conv", f"{dst}.cat", dst,
+             c * len(parts), c2)
+
+    def psa_block(prefix, m, src, dst, c):
+        heads = c // 64
+        hd = c // heads
+        kd = hd // 2
+        conv(f"{prefix}_qkv", f"{m}.attn.qkv.conv", src, f"{dst}.qkv", c,
+             c + 2 * kd * heads, silu=False)
+        nodes.append(AttentionNode(
+            name=f"{prefix}_attn", src=f"{dst}.qkv", dst=f"{dst}.att",
+            v_dst=f"{dst}.v", heads=heads, key_dim=kd, head_dim=hd,
+            tap=f"{prefix}_attn_logits", out_tap=f"{prefix}_attn"))
+        dwconv(f"{prefix}_pe", f"{m}.attn.pe.conv", f"{dst}.v", f"{dst}.pe",
+               c, silu=False)
+        nodes.append(ResidualAddNode(src=f"{dst}.pe", base=f"{dst}.att",
+                                     dst=f"{dst}.ap", label=f"{prefix}_pe"))
+        conv(f"{prefix}_proj", f"{m}.attn.proj.conv", f"{dst}.ap",
+             f"{dst}.proj", c, c, silu=False)
+        nodes.append(ResidualAddNode(src=f"{dst}.proj", base=src,
+                                     dst=f"{dst}.s0",
+                                     label=f"{prefix}_attn_add"))
+        conv(f"{prefix}_ffn0", f"{m}.ffn.0.conv", f"{dst}.s0", f"{dst}.f0",
+             c, 2 * c)
+        conv(f"{prefix}_ffn1", f"{m}.ffn.1.conv", f"{dst}.f0", f"{dst}.f1",
+             2 * c, c, silu=False)
+        nodes.append(ResidualAddNode(src=f"{dst}.f1", base=f"{dst}.s0",
+                                     dst=dst, label=f"{prefix}_ffn_add"))
+
+    c1, c2, c3, c4, c5 = ch(64), ch(128), ch(256), ch(512), ch(1024)
+
+    # ---------------- backbone (0-10) ----------------
+    conv("Conv_0", "model.0.conv", "image", "p1", 3, c1, 3, 2)
+    conv("Conv_1", "model.1.conv", "p1", "p2", c1, c2, 3, 2)
+    c3k2(2, "p2", "c3k2_2", c2, c3, False, 0.25)
+    conv("Conv_3", "model.3.conv", "c3k2_2", "p3", c3, c3, 3, 2)
+    c3k2(4, "p3", "c3k2_4", c3, c4, False, 0.25)
+    conv("Conv_5", "model.5.conv", "c3k2_4", "p4", c4, c4, 3, 2)
+    c3k2(6, "p4", "c3k2_6", c4, c4, True)
+    conv("Conv_7", "model.7.conv", "c3k2_6", "p5", c4, c5, 3, 2)
+    c3k2(8, "p5", "c3k2_8", c5, c5, True)
+    conv("SPPF_9_cv1", "model.9.cv1.conv", "c3k2_8", "sppf.c0", c5,
+         c5 // 2)
+    for j in (1, 2, 3):
+        nodes.append(MaxPoolNode(f"sppf.m{j - 1}" if j > 1 else "sppf.c0",
+                                 f"sppf.m{j}", f"SPPF_9_MAXPOOL_{j}"))
+    nodes.append(ConcatNode(("sppf.c0", "sppf.m1", "sppf.m2", "sppf.m3"),
+                            scale_from="sppf.c0", dst="sppf.cat",
+                            label="SPPF_9_cat"))
+    conv("SPPF_9_cv2", "model.9.cv2.conv", "sppf.cat", "sppf", c5 // 2 * 4,
+         c5)
+    c = c5 // 2
+    conv("C2PSA_10_cv1", "model.10.cv1.conv", "sppf", "psa.c0", c5, 2 * c)
+    nodes.append(SplitNode("psa.c0", "psa.a", "psa.b"))
+    prev = "psa.b"
+    for j in range(reps(2)):
+        psa_block(f"C2PSA_10_m{j}", f"model.10.m.{j}", prev, f"psa.m{j}", c)
+        prev = f"psa.m{j}"
+    nodes.append(ConcatNode(("psa.a", prev), scale_from="psa.c0",
+                            dst="psa.cat", label="C2PSA_10_cat"))
+    conv("C2PSA_10_cv2", "model.10.cv2.conv", "psa.cat", "c2psa_10", 2 * c,
+         c5)
+
+    # ---------------- neck, FPN up (11-16) ----------------
+    # (upsampled, skip), in the skip's scale
+    nodes.append(UpsampleNode("c2psa_10", "up11"))
+    nodes.append(ConcatNode(("up11", "c3k2_6"), scale_from="c3k2_6",
+                            dst="cat12", label="CONCAT_12"))
+    c3k2(13, "cat12", "c3k2_13", c5 + c4, c4, False)
+    nodes.append(UpsampleNode("c3k2_13", "up14"))
+    nodes.append(ConcatNode(("up14", "c3k2_4"), scale_from="c3k2_4",
+                            dst="cat15", label="CONCAT_15"))
+    c3k2(16, "cat15", "c3k2_16", c4 + c4, c3, False)
+
+    # ---------------- neck, PAN down (17-22) ----------------
+    # (fresh conv, skip); the full-quant 6b seam requantizes the fresh side
+    # into the skip's scale and declares the fresh one (ConcatNode docs)
+    quirk_6b = cfg.full_quant and not cfg.stage8_concat_flow
+    top, top_c = "c3k2_16", c3
+    for i, skip, skip_c, cout in ((17, "c3k2_13", c4, c4),
+                                  (20, "c2psa_10", c5, c5)):
+        conv(f"Conv_{i}", f"model.{i}.conv", top, f"down{i}", top_c, top_c,
+             3, 2)
+        nodes.append(ConcatNode(
+            (f"down{i}", skip), scale_from=skip if quirk_6b else f"down{i}",
+            dst=f"cat{i + 1}", label=f"CONCAT_{i + 1}",
+            declared_scale_from=f"down{i}" if quirk_6b else None))
+        c3k2(i + 2, f"cat{i + 1}", f"c3k2_{i + 2}", top_c + skip_c, cout,
+             i == 20)
+        top, top_c = f"c3k2_{i + 2}", cout
+
+    # ---------------- Detect over P3-P5 (23) ----------------
+    ch_box = max(16, c3 // 4, 64)
+    ch_cls = cfg.detect_cls_channels
+    outputs: Dict[str, str] = {}
+    for li, (level, src, cin) in enumerate((
+            ("p3", "c3k2_16", c3), ("p4", "c3k2_19", c4),
+            ("p5", "c3k2_22", c5))):
+        nm, key = f"Detect_{level}_box", f"model.23.cv2.{li}"
+        conv(f"{nm}_0", f"{key}.0.conv", src, f"{key}.0o", cin, ch_box, 3)
+        conv(f"{nm}_1", f"{key}.1.conv", f"{key}.0o", f"{key}.1o", ch_box,
+             ch_box, 3)
+        conv(f"{nm}_2", f"{key}.2", f"{key}.1o", f"{key}.out", ch_box, 64,
+             silu=False)
+        outputs[f"{level}_box"] = f"{key}.out"
+        nm, key = f"Detect_{level}_cls", f"model.23.cv3.{li}"
+        dwconv(f"{nm}_0", f"{key}.0.0.conv", src, f"{key}.0o", cin)
+        conv(f"{nm}_1", f"{key}.0.1.conv", f"{key}.0o", f"{key}.1o", cin,
+             ch_cls)
+        dwconv(f"{nm}_2", f"{key}.1.0.conv", f"{key}.1o", f"{key}.2o",
+               ch_cls)
+        conv(f"{nm}_3", f"{key}.1.1.conv", f"{key}.2o", f"{key}.3o", ch_cls,
+             ch_cls)
+        conv(f"{nm}_4", f"{key}.2", f"{key}.3o", f"{key}.out", ch_cls, 80,
+             silu=False)
+        outputs[f"{level}_cls"] = f"{key}.out"
+
+    # out_tap: the next conv's tap in graph order for a SiLU conv (the
+    # last neck block's cv2 hands on to its level's first cls conv), its
+    # own for a plain conv inside the network, none for a head conv
+    order = [i for i, n in enumerate(nodes) if isinstance(n, ConvNode)]
+    for i, j in zip(order, order[1:] + [None]):
+        n = nodes[i]
+        if n.silu:
+            nxt = ("Detect_p5_cls_0" if n.name == "C3k2_22_cv2"
+                   else nodes[j].tap if j is not None else None)
+        else:
+            nxt = None if n.dst in outputs.values() else n.tap
+        nodes[i] = dataclasses.replace(n, out_tap=nxt)
+    return Graph(cfg=cfg, nodes=tuple(nodes), input_edge="image",
+                 outputs=outputs)
+
+
 def _shape_walk(graph: Graph, image_size: int):
     """(edge -> (C, H, W) of one image, conv MACs per node) from a walk of
     the IR."""
@@ -637,6 +961,10 @@ def _shape_walk(graph: Graph, image_size: int):
         elif isinstance(node, UpsampleNode):
             c, h, w = shapes[node.src]
             shapes[node.dst] = (c, h * node.factor, w * node.factor)
+        elif isinstance(node, AttentionNode):
+            _, h, w = shapes[node.src]
+            shapes[node.dst] = shapes[node.v_dst] = (
+                node.heads * node.head_dim, h, w)
     return shapes, costs
 
 

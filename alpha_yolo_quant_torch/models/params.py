@@ -15,7 +15,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from alpha_yolo_quant_torch.models.graph import ConvNode, Graph
+from alpha_yolo_quant_torch.models.graph import (
+    ConvNode, Graph, require_dense_graph,
+)
 
 BN_EPS = 1e-3  # reference stage_1.py:37 (BatchNorm2d eps=0.001)
 
@@ -126,10 +128,11 @@ def load_raw_from_values(graph: Graph, values: Sequence[np.ndarray]) -> Dict:
     validation — a checkpoint from a different model scale must fail with
     a diagnostic naming the first mismatched slot (the reference's blind
     zip, stage_1.py:775-783, would load it and produce garbage or a
-    cryptic fusion error). The P6 graph has no remap yet."""
+    cryptic fusion error). The P6 and YOLO11 graphs have no remap yet."""
     if graph.cfg.p6:
         raise ValueError(f"{graph.cfg.model}: checkpoints load into the "
                          "three-level graphs only")
+    require_dense_graph(graph, "checkpoint remap")
     slots = raw_param_slots(graph)
     n_expected = sum(len(s[1]) for s in slots)
     if len(values) != n_expected:

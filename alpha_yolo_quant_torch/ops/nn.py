@@ -12,9 +12,23 @@ import torch
 import torch.nn.functional as F
 
 
-def conv2d_f32(x, w, b=None, stride: int = 1, padding: int = 0):
+def conv2d_f32(x, w, b=None, stride: int = 1, padding: int = 0,
+               groups: int = 1):
     """Float conv (cross-correlation), NCHW/OIHW."""
-    return F.conv2d(x, w, b, stride=stride, padding=padding)
+    return F.conv2d(x, w, b, stride=stride, padding=padding, groups=groups)
+
+
+def attention_f32(qkv, heads: int, key_dim: int, head_dim: int):
+    """ultralytics Attention's core on the qkv conv's NCHW output:
+    (logits q^T k * key_dim^-0.5 (B, heads, N, N), v . softmax(logits)^T
+    and v, both NCHW in channel h * head_dim + d)."""
+    b, _, h, w = qkv.shape
+    q, k, v = qkv.reshape(b, heads, 2 * key_dim + head_dim, h * w).split(
+        [key_dim, key_dim, head_dim], dim=2)
+    logits = (q.transpose(-2, -1) @ k) * key_dim ** -0.5
+    out = v @ logits.softmax(dim=-1).transpose(-2, -1)
+    return (logits, out.reshape(b, heads * head_dim, h, w),
+            v.reshape(b, heads * head_dim, h, w))
 
 
 def silu(x):
@@ -48,7 +62,8 @@ def upsample_nearest(x, factor: int = 2, nhwc: bool = False):
             .reshape(b, c, h * factor, w * factor))
 
 
-def conv2d_int_exact(x_int, w, stride: int = 1, padding: int = 0):
+def conv2d_int_exact(x_int, w, stride: int = 1, padding: int = 0,
+                     groups: int = 1):
     """Exact integer conv, NCHW/OIHW -> int64, on any device.
 
     Runs F.conv2d in float64: every product and every partial sum is an
@@ -57,7 +72,7 @@ def conv2d_int_exact(x_int, w, stride: int = 1, padding: int = 0):
     2^53 exact-integer range, so any summation order gives the exact
     result. Never run it on int8 tensors: an int8 conv2d wraps."""
     acc = F.conv2d(x_int.to(torch.float64), w.to(torch.float64),
-                   stride=stride, padding=padding)
+                   stride=stride, padding=padding, groups=groups)
     return acc.to(torch.int64)
 
 

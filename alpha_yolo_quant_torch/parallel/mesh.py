@@ -392,9 +392,12 @@ def tensor_parallel_fn(graph, mesh: DeviceMesh, axis: str = "tp",
     insert the gathers. With ``dp_axis`` the rows shard over it (a (dp,
     tp) mesh) and the preds stay batch-sharded."""
     from alpha_yolo_quant_torch.models.forward import forward_float
+    from alpha_yolo_quant_torch.models.graph import require_dense_graph
     from alpha_yolo_quant_torch.models.head import decode_float
     from alpha_yolo_quant_torch.ops.nn import conv2d_f32
 
+    # a depthwise conv's channels do not split as a dense conv's C_out
+    require_dense_graph(graph, "tensor parallel")
     group = mesh.get_group(axis)
 
     def conv(x, w, b, stride, padding):
@@ -424,8 +427,10 @@ def _halo(node):
     kernel's fixed pad 1 (the first output row, computed over the pad, is
     dropped). SPPF max-pool (k5 p2): two rows each side. 1x1 convs, split,
     residual, concat and the 2x upsample (band [a, b) -> [2a, 2b)) read no
-    other rows."""
-    from alpha_yolo_quant_torch.models.graph import ConvNode, MaxPoolNode
+    other rows. An attention node reads every row: it has no band."""
+    from alpha_yolo_quant_torch.models.graph import (
+        AttentionNode, ConvNode, MaxPoolNode,
+    )
 
     if isinstance(node, ConvNode):
         if node.kernel == 1 and node.stride == 1 and node.padding == 0:
@@ -435,7 +440,7 @@ def _halo(node):
     elif isinstance(node, MaxPoolNode):
         if node.stride == 1 and node.kernel == 2 * node.padding + 1:
             return node.padding, node.padding, 1
-    else:
+    elif not isinstance(node, AttentionNode):
         return None
     raise ValueError(f"{type(node).__name__} -> {node.dst}: no height-band "
                      "rule for this geometry")

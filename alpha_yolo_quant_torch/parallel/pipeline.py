@@ -33,7 +33,7 @@ import torch.distributed as dist
 
 from alpha_yolo_quant_torch.models.graph import (
     ConcatNode, ConvNode, Graph, MaxPoolNode, ResidualAddNode, SplitNode,
-    UpsampleNode, edge_shapes, node_costs,
+    UpsampleNode, edge_shapes, node_costs, require_dense_graph,
 )
 
 
@@ -151,8 +151,11 @@ def build_pipeline_spec(model, n_stages: int, microbatch: int,
     """Plan an S-stage pipeline: balanced cuts, live-edge boundary sets,
     and the boundary tensors' shapes (a shape walk of the IR) and dtypes.
     No forward runs, so JAX's device-plan argument has no counterpart.
-    The stages run the fused engine."""
+    The stages run the fused engine. Refuses a graph with depthwise convs
+    or attention (YOLO11): the stage boundaries carry the dense graphs'
+    edges."""
     graph = model.graph
+    require_dense_graph(graph, "pipeline parallel")
     bounds = _choose_cuts(graph, model.cfg.image_size, n_stages)
     roles = sorted(graph.outputs)
     out_last = tuple(dict.fromkeys(graph.outputs[r] for r in roles))

@@ -92,3 +92,14 @@ def exponent_lut(max_conv_value: float, bits: int) -> Lut:
     raw = np.array(raw, np.float64)
     return Lut(lo=-vmax, hi=0, values=raw.astype(np.int32), raw=raw,
                max_val=float(max_conv_value), bits=bits)
+
+
+def unit_lut(bits: int) -> Lut:
+    """The table of ones over the SiLU table's domain: the SiLU epilogue
+    read through it, clip(rhu((1 * r2 * acc) >> (s2 - 1))), is the plain
+    requant of acc, whatever its first requant gives (runtime/fused_ops:
+    a plain conv inside the network runs the SiLU kernels with it)."""
+    qmax = 2 ** (bits - 1) - 1
+    raw = np.ones(2 * qmax + 1, np.float64)
+    return Lut(lo=-qmax, hi=qmax, values=raw.astype(np.int32), raw=raw,
+               max_val=1.0, bits=bits)

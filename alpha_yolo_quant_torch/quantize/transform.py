@@ -33,8 +33,8 @@ import numpy as np
 
 from alpha_yolo_quant_torch.config import QuantConfig
 from alpha_yolo_quant_torch.models.graph import (
-    ConcatNode, ConvNode, Graph, MaxPoolNode, ResidualAddNode, SplitNode,
-    UpsampleNode,
+    AttentionNode, ConcatNode, ConvNode, Graph, MaxPoolNode, ResidualAddNode,
+    SplitNode, UpsampleNode,
 )
 from alpha_yolo_quant_torch.quantize.luts import Lut, exponent_lut, sigmoid_lut
 from alpha_yolo_quant_torch.quantize.primitives import (
@@ -54,7 +54,8 @@ class ConvPlan:
     in_scale: float                 # scalar input scale
     w_scales: np.ndarray            # (C_out,) float64
     acc_scale: np.ndarray           # (1, C_out, 1, 1) float64
-    # SiLU constants (None for the plain head convs):
+    # SiLU constants (None for the plain head convs; a plain conv inside
+    # the network, node.requant_out, has r2/s2 alone: acc -> out scale):
     r1: Optional[np.ndarray] = None  # (1,C,1,1) int32: acc -> sigmoid domain
     s1: Optional[np.ndarray] = None
     r2: Optional[np.ndarray] = None  # (1,C,1,1) int32: sigma*acc -> out scale
@@ -96,6 +97,29 @@ class RequantPlan:
     shift: int
     old_scale: float
     new_scale: float
+
+
+@dataclasses.dataclass
+class AttnPlan:
+    """An attention node's integer constants (the contract is
+    runtime/golden.attention_np). q, k and v share the qkv conv's output
+    scale ``in_scale``; the exact int32 logits q^T k carry ``logit_old``
+    = in_scale^2 * sqrt(key_dim) per unit of q^T k * key_dim^-0.5 and
+    are requantized (logit_r, logit_s) to 8 bits at ``logit_scale``, the
+    logit tap's; ``exp_lut`` is the DFL's exponent table at that tap; the
+    floored output, in ``in_scale``, is requantized (out_r, out_s) to
+    ``out_scale``, the out_tap's, K bits."""
+
+    node: AttentionNode
+    in_scale: float
+    logit_old: float
+    logit_scale: float
+    logit_r: int
+    logit_s: int
+    exp_lut: Lut
+    out_scale: float
+    out_r: int
+    out_s: int
 
 
 @dataclasses.dataclass
@@ -146,6 +170,14 @@ class QuantizedModel:
     # existing machinery keys off edge_amax_int unchanged.
     edge_lo: Dict[str, int] = dataclasses.field(default_factory=dict)
     edge_hi: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class AttentionModel(QuantizedModel):
+    """The QuantizedModel of a graph with attention nodes (YOLO11), with
+    their plans by AttentionNode.name."""
+
+    attns: Dict[str, AttnPlan] = dataclasses.field(default_factory=dict)
 
 
 class PlanError(RuntimeError):
@@ -312,6 +344,7 @@ def build_quantized_model(graph: Graph, params: Dict,
     convs: Dict[str, ConvPlan] = {}
     requants: Dict[Tuple[int, str], RequantPlan] = {}
     clip_after: Dict[int, int] = {}
+    attns: Dict[str, AttnPlan] = {}
 
     def scalar_requant(idx, src, old, new):
         r, s = derive_rescale_shift(np.float64(old), float(new),
@@ -411,6 +444,26 @@ def build_quantized_model(graph: Graph, params: Dict,
                 edge_amax[node.dst] = qmax
                 edge_lo_d[node.dst], edge_hi_d[node.dst] = \
                     silu_out_range(plan, sig, qmax)
+            elif node.requant_out:
+                # plain conv inside the network: the accumulator is
+                # requantized once to int8 at its own tap, clamped to the
+                # reachable range as the SiLU output is
+                out_s = scale_for(max_a[node.out_tap], k)
+                feas = float(np.min(acc_scale)) * 2.0 ** (cfg.koeff_bits - 2)
+                if out_s > feas:
+                    if bias_warn:
+                        bias_warn(f"{node.name}: calibrated "
+                                  f"a={max_a[node.out_tap]:.4g} "
+                                  "requant-infeasible; clamping", 0)
+                    out_s = feas
+                r2, s2 = derive_rescale_shift(acc_scale, out_s,
+                                              cfg.koeff_bits)
+                plan.r2 = np.int64(r2).astype(np.int32)
+                plan.s2 = np.int64(s2).astype(np.int32)
+                plan.out_scale = float(out_s)
+                edge_scale[node.dst] = float(out_s)
+                edge_amax[node.dst] = qmax
+                edge_lo_d[node.dst], edge_hi_d[node.dst] = -qmax, qmax
             else:
                 # plain head conv: dst carries the raw int32 accumulator
                 edge_scale[node.dst] = float("nan")
@@ -473,16 +526,52 @@ def build_quantized_model(graph: Graph, params: Dict,
             edge_amax[node.dst] = edge_amax[node.src]
             edge_lo_d[node.dst] = edge_lo_d[node.src]
             edge_hi_d[node.dst] = edge_hi_d[node.src]
+        elif isinstance(node, AttentionNode):
+            attns[node.name] = _attn_plan(node, edge_scale[node.src], max_a,
+                                          cfg)
+            for e in (node.dst, node.v_dst):
+                edge_amax[e] = qmax
+                edge_lo_d[e], edge_hi_d[e] = -qmax, qmax
+            edge_scale[node.dst] = attns[node.name].out_scale
+            edge_scale[node.v_dst] = edge_scale[node.src]
 
     model = QuantizedModel(cfg=cfg, graph=graph, max_a=dict(max_a),
                            convs=convs, requants=requants,
                            edge_scale=edge_scale, edge_amax_int=edge_amax,
                            sig_lut=sig, clip_after_residual=clip_after,
                            edge_lo=edge_lo_d, edge_hi=edge_hi_d)
+    if attns:
+        model = AttentionModel(**vars(model), attns=attns)
     if cfg.full_quant:
         model.head = _build_head_plan(graph, params, convs, cfg,
                                       dfl_override=dfl_override)
     return model
+
+
+def _attn_plan(node: AttentionNode, in_s: float, max_a: Dict[str, float],
+               cfg: QuantConfig) -> AttnPlan:
+    """The attention's constants. Each calibrated scale is clamped to the
+    largest one the koeff-bit rescale reaches from its old scale, as the
+    SiLU output's is, which keeps every shift at 1 or more (the logit
+    tap's max-abs then follows the clamped scale, and so does the
+    exponent table)."""
+    kb = cfg.koeff_bits
+    reach = 2.0 ** (kb - 2)
+    logit_old = in_s ** 2 * node.key_dim ** 0.5
+    a_logit = max_a[node.tap]
+    logit_scale = scale_for(a_logit, 8)
+    if logit_scale > logit_old * reach:
+        logit_scale = logit_old * reach
+        a_logit = 127 / logit_scale
+    lr, ls = derive_rescale_shift(np.float64(logit_old), logit_scale, kb)
+    out_scale = min(scale_for(max_a[node.out_tap], cfg.k), in_s * reach)
+    orr, os_ = derive_rescale_shift(np.float64(in_s), out_scale, kb)
+    return AttnPlan(node=node, in_scale=float(in_s),
+                    logit_old=float(logit_old),
+                    logit_scale=float(logit_scale), logit_r=int(lr),
+                    logit_s=int(ls), exp_lut=exponent_lut(a_logit, 8),
+                    out_scale=float(out_scale), out_r=int(orr),
+                    out_s=int(os_))
 
 
 def _anchor_max(image_size: int) -> float:

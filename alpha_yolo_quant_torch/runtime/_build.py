@@ -21,7 +21,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("conv1x1", "conv3x3", "sigma_probe", "postconv", "packed_conv",
-           "glue")
+           "glue", "dwconv", "attn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,6 +45,9 @@ ARGTYPES = {
                         _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
                         _I, _I, _I, _U, _I, _P],
     "ayq_requant_combine": [_I, _PP, _PL, _PI, _I, _I, _I, _I, _P],
+    "ayq_dwconv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I,
+                      _I, _I, _P],
+    "ayq_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

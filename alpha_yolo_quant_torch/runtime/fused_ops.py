@@ -14,7 +14,13 @@ its weights twice: OIHW float64 for the plain version and the tensor-core
 kernels' B operand, (Cout, Kp) int8 with the depth tap-major and
 contiguous per output channel (pack_weights). On a CUDA device the entry
 also holds the B operand's TMA descriptor for its column tiles (tile_n),
-encoded once when the entry is made.
+encoded once when the entry is made. A depthwise conv's entry
+(dwconv_entry) holds its weights as (9, C) int8 for dwconv3x3 instead.
+
+A plain conv inside the network (YOLO11's qkv, pe, proj and FFN convs:
+ConvNode.requant_out) runs the SiLU epilogue with r1 = 0, s1 = 1 and the
+table of ones (quantize/luts.unit_lut): its output is then the plain
+requant clip(rhu((r2 * acc) >> (s2 - 1))), int8.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ LAUNCHES: Dict[str, int] = {"conv1x1": 0, "conv3x3": 0, "conv_vector": 0,
                             "conv_wide": 0, "conv_gather": 0,
                             "sigma_probe": 0, "postconv_silu": 0,
                             "postconv_plain": 0, "packed_conv": 0,
-                            "glue_add": 0, "glue_concat": 0}
+                            "glue_add": 0, "glue_concat": 0, "dwconv": 0,
+                            "attn": 0}
 
 K_TILE = 64        # packed weight depth is zero-padded to a multiple of it
 #                    (the conv kernels' stages hold 128 bytes of depth and
@@ -48,6 +55,10 @@ MAX_LUT = 256      # epilogue.cuh kMaxLut: the longest sigmoid table
 CHUNK = 16         # channels per cp.async copy (conv_igemm.cuh): inputs
 #                    with Cin % CHUNK == 0 are read 16 bytes at a time
 MAX_SOURCES = 8    # glue.cu kGlueParts: the most sources of one concat
+ATTN_DIMS = (32, 64)   # attn.cu kAttnKd, kAttnHd: key_dim and head_dim
+MAX_ATTN_N = 1792      # attn.cu: the most pixels whose q, k and v (128
+#                        bytes each) and exponent table fit 227 KB of
+#                        shared memory
 _ACT_TYPES = (torch.int8, torch.int16)
 
 
@@ -124,7 +135,7 @@ def conv_entry(w_q, b_q, stride: int, padding: int, silu: bool, device,
                               device=device),
          "kernel": int(w_q.shape[2]), "stride": int(stride),
          "padding": int(padding), "silu": bool(silu),
-         "cin": int(w_q.shape[1]), "cout": int(w_q.shape[0]),
+         "cin": int(w_q.shape[1]), "cout": int(w_q.shape[0]), "groups": 1,
          "w_map": None}
     if silu:
         for f, v in (("r1", r1), ("s1", s1), ("r2", r2), ("s2", s2)):
@@ -136,12 +147,48 @@ def conv_entry(w_q, b_q, stride: int, padding: int, silu: bool, device,
     return c
 
 
+def requant_consts(r2, s2):
+    """(r1, s1, r2, s2) of a plain conv inside the network: the SiLU
+    epilogue's first requant reads 0, its table the ones of unit_lut."""
+    r2 = np.asarray(r2).reshape(-1)
+    return np.zeros_like(r2), np.ones_like(r2), r2, np.asarray(s2)
+
+
+def dwconv_entry(w_q, b_q, device, r1, s1, r2, s2) -> Dict:
+    """A depthwise 3x3 conv's tensors: the OIHW float64 weights (C, 1, 3,
+    3) of the plain version, the kernel's (9, C) int8 taps, the
+    per-channel int32 bias and requant constants (a plain conv's from
+    requant_consts, read with unit_lut)."""
+    w_q = np.asarray(w_q)
+    cout = int(w_q.shape[0])
+    c = {"w_f64": torch.as_tensor(w_q, dtype=torch.float64, device=device),
+         "w_taps": torch.as_tensor(np.ascontiguousarray(
+             w_q.reshape(cout, 9).T).astype(np.int8), device=device),
+         "b": torch.as_tensor(np.asarray(b_q).reshape(-1), dtype=torch.int32,
+                              device=device),
+         "kernel": 3, "stride": 1, "padding": 1, "cin": 1, "cout": cout,
+         "groups": cout}
+    for f, v in (("r1", r1), ("s1", s1), ("r2", r2), ("s2", s2)):
+        c[f] = torch.as_tensor(np.asarray(v).reshape(-1), dtype=torch.int32,
+                               device=device)
+    return c
+
+
+def attn_entry(a, device) -> Dict:
+    """An attention node's constants (quantize/transform.AttnPlan): its
+    shape, the scalar logit and output requants and the exponent table."""
+    n = a.node
+    return {"heads": n.heads, "key_dim": n.key_dim, "head_dim": n.head_dim,
+            "logit": (a.logit_r, a.logit_s), "out": (a.out_r, a.out_s),
+            "exp": DeviceLut(a.exp_lut, device)}
+
+
 # ---------------------------------------------------------------- plain
 
 def conv_acc_plain(x: torch.Tensor, c: Dict) -> torch.Tensor:
     """Exact accumulator + bias, NHWC int64 (the plain conv)."""
     acc = conv2d_int_exact(x.permute(0, 3, 1, 2), c["w_f64"], c["stride"],
-                           c["padding"])
+                           c["padding"], c["groups"])
     return acc.permute(0, 2, 3, 1) + c["b"]
 
 
@@ -160,6 +207,37 @@ def conv_plain(x: torch.Tensor, c: Dict, sig: DeviceLut,
     if not c["silu"]:
         return acc.to(torch.int32).contiguous()
     return silu_epilogue_plain(acc, c, sig, qmax).contiguous()
+
+
+def dwconv3x3_plain(x: torch.Tensor, c: Dict, sig: DeviceLut,
+                    qmax: int) -> torch.Tensor:
+    """The plain version of dwconv3x3: int8 NHWC."""
+    return silu_epilogue_plain(conv_acc_plain(x, c), c, sig,
+                               qmax).contiguous()
+
+
+def attention_plain(qkv: torch.Tensor, a: Dict, qmax: int):
+    """The plain version of attention, on any device: the products in
+    float64, where every value is an integer below 2^53, so they are
+    exact; every other step in int64 (runtime/golden.attention_np is the
+    contract). Returns (out, v), int8 NHWC, channel h * head_dim + d."""
+    b, hh, ww, _ = qkv.shape
+    heads, kd, hd = a["heads"], a["key_dim"], a["head_dim"]
+    t = qkv.reshape(b, hh * ww, heads, 2 * kd + hd).permute(0, 2, 1, 3)
+    t = t.to(torch.float64)                               # (b, heads, N, .)
+    q, k, v = t[..., :kd], t[..., kd:2 * kd], t[..., 2 * kd:]
+    logits = (q @ k.transpose(2, 3)).to(torch.int64)
+    lq = requantize(logits, a["logit"][0], a["logit"][1], 127)
+    e = a["exp"].apply(lq - torch.amax(lq, dim=3, keepdim=True))
+    acc = (e.to(torch.float64) @ v).to(torch.int64)       # (b, heads, N, hd)
+    o = torch.div(acc, e.to(torch.int64).sum(dim=3, keepdim=True),
+                  rounding_mode="floor")
+    out = requantize(o, a["out"][0], a["out"][1], qmax).to(torch.int8)
+
+    def nhwc(u):
+        return u.permute(0, 2, 1, 3).reshape(b, hh, ww, heads * hd) \
+            .contiguous()
+    return nhwc(out), nhwc(v.to(torch.int8))
 
 
 def sigma_probe_plain(sig: DeviceLut) -> torch.Tensor:
@@ -502,6 +580,87 @@ def _launch_concat(srcs, requants, qmax, dtype) -> torch.Tensor:
         parts.append((t, None, b * h * w, t.shape[3], off, ctot, rq))
         off += t.shape[3]
     return _launch_glue("glue_concat", parts, out, qmax, None)
+
+
+def dwconv3x3(x: torch.Tensor, c: Dict, sig: DeviceLut,
+              qmax: int = 127) -> torch.Tensor:
+    """A depthwise 3x3 pad-1 stride-1 conv + the SiLU epilogue (or, with
+    unit_lut, the plain requant) over int8 NHWC, one launch of
+    csrc/dwconv.cu (the plain version on a CPU tensor). Returns int8
+    NHWC."""
+    if _on_cpu(x):
+        return dwconv3x3_plain(x, c, sig, qmax)
+    from alpha_yolo_quant_torch.runtime._build import kernel
+
+    if x.dtype != torch.int8:
+        raise TypeError(f"dwconv: int8 input only, got {x.dtype} (no wide "
+                        "edge reaches a depthwise conv)")
+    if x.dim() != 4:
+        raise ValueError(f"dwconv: need NHWC, got {tuple(x.shape)}")
+    b, h, w, ch = x.shape
+    if not x.is_contiguous() or ch != c["cout"] or ch % CHUNK \
+            or x.data_ptr() % 16:
+        raise ValueError(f"dwconv: need a contiguous, 16-byte aligned NHWC "
+                         f"tensor of {c['cout']} channels, a multiple of "
+                         f"{CHUNK}; got {tuple(x.shape)}")
+    if c["w_taps"].device != x.device:
+        raise ValueError(f"dwconv: weights on {c['w_taps'].device}, input "
+                         f"on {x.device}")
+    _check_table("dwconv", sig, qmax)
+    out = torch.empty_like(x)
+    rc = kernel("dwconv", "ayq_dwconv3x3")(
+        x.data_ptr(), c["w_taps"].data_ptr(), c["b"].data_ptr(),
+        *[c[f].data_ptr() for f in ("r1", "s1", "r2", "s2")],
+        sig.values.data_ptr(), sig.lo, sig.values.numel(), out.data_ptr(),
+        b, h, w, ch, qmax, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"dwconv launch failed: cudaError_t {rc}")
+    LAUNCHES["dwconv"] += 1
+    return out
+
+
+def attention(qkv: torch.Tensor, a: Dict, qmax: int = 127):
+    """An attention node over int8 NHWC qkv, one launch of csrc/attn.cu
+    for all images and heads (the plain version on a CPU tensor).
+    Returns (out, v), int8 NHWC, channel h * head_dim + d."""
+    if _on_cpu(qkv):
+        return attention_plain(qkv, a, qmax)
+    from alpha_yolo_quant_torch.runtime._build import kernel
+
+    b, hh, ww, c = qkv.shape
+    heads, kd, hd = a["heads"], a["key_dim"], a["head_dim"]
+    n = hh * ww
+    if (kd, hd) != ATTN_DIMS:
+        raise ValueError(f"attn: key_dim {kd} and head_dim {hd}; the kernel "
+                         f"takes {ATTN_DIMS}")
+    if qkv.dtype != torch.int8 or not qkv.is_contiguous() \
+            or c != heads * (2 * kd + hd) or qkv.data_ptr() % 16:
+        raise ValueError(f"attn: need contiguous, 16-byte aligned int8 NHWC "
+                         f"qkv of {heads * (2 * kd + hd)} channels, got "
+                         f"{qkv.dtype} {tuple(qkv.shape)}")
+    if not 1 <= n <= MAX_ATTN_N:
+        raise ValueError(f"attn: {n} pixels, the kernel takes 1 to "
+                         f"{MAX_ATTN_N}")
+    (lr, ls), (orr, os_) = a["logit"], a["out"]
+    # the logit requant runs in 32 bits: |r * q^T k| < 2^31
+    if not (1 <= ls <= 31 and 1 <= os_ <= 31
+            and abs(lr) * kd * 128 ** 2 < 2 ** 31 and abs(orr) * 128 < 2 ** 31):
+        raise ValueError(f"attn: requants ({lr}, {ls}), ({orr}, {os_}) out "
+                         "of the kernel's 32-bit range")
+    exp = a["exp"]
+    if (exp.lo, exp.hi) != (-255, 0) or exp.values.device != qkv.device:
+        raise ValueError("attn: the exponent table covers [-255, 0] on the "
+                         "input's device")
+    out = torch.empty((b, hh, ww, heads * hd), dtype=torch.int8,
+                      device=qkv.device)
+    v = torch.empty_like(out)
+    rc = kernel("attn", "ayq_attention")(
+        qkv.data_ptr(), out.data_ptr(), v.data_ptr(), exp.values.data_ptr(),
+        b, n, heads, lr, ls, orr, os_, qmax, _stream(qkv))
+    if rc != 0:
+        raise RuntimeError(f"attn launch failed: cudaError_t {rc}")
+    LAUNCHES["attn"] += 1
+    return out, v
 
 
 def sigma_probe(sig: DeviceLut) -> torch.Tensor:

@@ -17,25 +17,63 @@ from typing import Dict
 import numpy as np
 
 from alpha_yolo_quant_torch.models.graph import (
-    ConcatNode, ConvNode, MaxPoolNode, ResidualAddNode, SplitNode,
-    UpsampleNode,
+    AttentionNode, ConcatNode, ConvNode, MaxPoolNode, ResidualAddNode,
+    SplitNode, UpsampleNode,
 )
 from alpha_yolo_quant_torch.models.head import level_stride
 from alpha_yolo_quant_torch.quantize.primitives import requantize_np, scale_for
-from alpha_yolo_quant_torch.quantize.transform import QuantizedModel
+from alpha_yolo_quant_torch.quantize.transform import AttnPlan, QuantizedModel
 
 
 def conv2d_int64(x: np.ndarray, w: np.ndarray, stride: int,
-                 padding: int) -> np.ndarray:
-    """Integer conv via padded sliding windows (int64 exact)."""
+                 padding: int, groups: int = 1) -> np.ndarray:
+    """Integer conv via padded sliding windows (int64 exact); groups 1 or
+    the channel count (depthwise, w of shape (C, 1, kh, kw))."""
     if padding:
         x = np.pad(x, ((0, 0), (0, 0), (padding, padding),
                        (padding, padding)))
     kh, kw = w.shape[2], w.shape[3]
     win = np.lib.stride_tricks.sliding_window_view(x, (kh, kw), axis=(2, 3))
     win = win[:, :, ::stride, ::stride]                    # (N,C,H',W',kh,kw)
+    if groups > 1:
+        if groups != x.shape[1] or w.shape[:2] != (groups, 1):
+            raise ValueError("grouped convs are depthwise only")
+        return np.einsum("nchwij,cij->nchw", win.astype(np.int64),
+                         w[:, 0].astype(np.int64), optimize=True)
     return np.einsum("nchwij,ocij->nohw", win.astype(np.int64),
                      w.astype(np.int64), optimize=True)
+
+
+def attention_np(a: AttnPlan, qkv: np.ndarray, k: int,
+                 koeff_bits: int = 8):
+    """The attention's integer contract on the int8 qkv edge (B, C, H, W),
+    per image and head over the N = H * W pixels:
+
+        L   = q^T k                       exact (|L| <= key_dim * 127^2)
+        Lq  = requant(L, logit_old -> logit_scale), 8 bits
+        e   = exp_lut[Lq - rowmax(Lq)]    the DFL's softmax core
+        A   = sum_m e[n, m] v[d, m]       exact (<= N * 127^2)
+        S   = sum_m e[n, m]               (>= 127: the row's max gives it)
+        out = requant(floor(A / S), in_scale -> out_scale), K bits
+
+    normalised after the product, so a flat softmax keeps its sum (a
+    7- or 8-bit probability of a row over 400 pixels would be 0). Returns
+    (out, v), (B, heads * head_dim, H, W) each, channel h * head_dim +
+    d."""
+    n = a.node
+    b, _, hh, ww = qkv.shape
+    t = np.int64(qkv).reshape(b, n.heads, 2 * n.key_dim + n.head_dim, -1)
+    q, kk = t[:, :, :n.key_dim], t[:, :, n.key_dim:2 * n.key_dim]
+    v = t[:, :, 2 * n.key_dim:]
+    logits = np.einsum("bhdn,bhdm->bhnm", q, kk)
+    lq, _, _ = requantize_np(logits, a.logit_old, a.logit_scale, 8,
+                             koeff_bits)
+    e = a.exp_lut.apply_np(lq - lq.max(axis=3, keepdims=True))
+    acc = np.einsum("bhnm,bhdm->bhdn", e, v)
+    out = acc // e.sum(axis=3)[:, :, None, :]
+    out, _, _ = requantize_np(out, a.in_scale, a.out_scale, k, koeff_bits)
+    shape = (b, n.heads * n.head_dim, hh, ww)
+    return out.reshape(shape), v.reshape(shape)
 
 
 def maxpool_int64(x: np.ndarray, kernel: int, stride: int,
@@ -74,9 +112,12 @@ def golden_forward(model: QuantizedModel, x: np.ndarray,
         if isinstance(node, ConvNode):
             c = model.convs[node.name]
             acc = conv2d_int64(env[node.src], c.w_q, node.stride,
-                               node.padding)
+                               node.padding, node.groups)
             acc = acc + np.int64(c.b_q).reshape(1, -1, 1, 1)
-            if node.silu:
+            if node.requant_out:
+                env[node.dst], _, _ = requantize_np(
+                    acc, c.acc_scale, c.out_scale, k, cfg.koeff_bits)
+            elif node.silu:
                 dom, _, _ = requantize_np(acc, c.acc_scale, sig_scale, k,
                                           cfg.koeff_bits)
                 env[f"{node.name}:sigdom"] = dom
@@ -120,6 +161,9 @@ def golden_forward(model: QuantizedModel, x: np.ndarray,
             env[node.dst] = np.repeat(
                 np.repeat(env[node.src], node.factor, axis=2),
                 node.factor, axis=3)
+        elif isinstance(node, AttentionNode):
+            env[node.dst], env[node.v_dst] = attention_np(
+                model.attns[node.name], env[node.src], k, cfg.koeff_bits)
 
     for role, e in model.graph.outputs.items():
         env[role] = env[e]

@@ -31,12 +31,13 @@ import numpy as np
 import torch
 
 from alpha_yolo_quant_torch.models.graph import (
-    ConcatNode, ConvNode, MaxPoolNode, ResidualAddNode, SplitNode,
-    UpsampleNode, edge_shapes,
+    AttentionNode, ConcatNode, ConvNode, MaxPoolNode, ResidualAddNode,
+    SplitNode, UpsampleNode, edge_shapes, require_dense_graph,
 )
 from alpha_yolo_quant_torch.models.head import (  # noqa: F401 (re-export)
     decode_float, dequantize_heads, dist2bbox, level_stride, make_anchors,
 )
+from alpha_yolo_quant_torch.quantize.luts import unit_lut
 from alpha_yolo_quant_torch.quantize.transform import QuantizedModel
 from alpha_yolo_quant_torch.ops.intmath import requantize, requantize_small
 from alpha_yolo_quant_torch.ops.lut import DeviceLut
@@ -55,9 +56,12 @@ ENGINES = ("fused", "pallas", "packed")
 
 def device_plan(model: QuantizedModel, device) -> Dict:
     """The model's integer constants as tensors on ``device``: per conv the
-    wrapper entry (fused_ops.conv_entry), the scalar structural requants,
-    the LUTs as tables, and the full-quant head constants. Runs the sigma
-    probe once, which must find no fixups."""
+    wrapper entry (fused_ops.conv_entry, dwconv_entry for a depthwise
+    conv; a plain conv inside the network takes requant_consts), per
+    attention node attn_entry, the scalar structural requants, the LUTs
+    as tables (the table of ones, unit_lut, among them), and the
+    full-quant head constants. Runs the sigma probe once, which must find
+    no fixups."""
     device = torch.device(device)
     qmax = model.cfg.qmax
     sig = DeviceLut(model.sig_lut, device)
@@ -68,13 +72,23 @@ def device_plan(model: QuantizedModel, device) -> Dict:
     if corrections:
         raise RuntimeError(f"epilogue sigmoid differs from the table at "
                            f"{corrections}")
-    plan: Dict = {"device": device, "sig_lut": sig, "convs": {},
-                  "requants": {}}
+    plan: Dict = {"device": device, "sig_lut": sig,
+                  "unit_lut": DeviceLut(unit_lut(model.cfg.k), device),
+                  "convs": {}, "requants": {}, "attns": {}}
     for name, c in model.convs.items():
         n = c.node
+        consts = (fused_ops.requant_consts(c.r2, c.s2) if n.requant_out
+                  else (c.r1, c.s1, c.r2, c.s2))
+        if n.groups > 1:
+            plan["convs"][name] = fused_ops.dwconv_entry(c.w_q, c.b_q,
+                                                         device, *consts)
+            continue
         plan["convs"][name] = fused_ops.conv_entry(
-            c.w_q, c.b_q, n.stride, n.padding, n.silu, device,
-            r1=c.r1, s1=c.s1, r2=c.r2, s2=c.s2)
+            c.w_q, c.b_q, n.stride, n.padding, n.silu or n.requant_out,
+            device, *consts)
+    for node in model.graph.attentions():
+        plan["attns"][node.name] = fused_ops.attn_entry(
+            model.attns[node.name], device)
     for key, r in model.requants.items():
         plan["requants"][key] = (int(r.rescale), int(r.shift))
     if model.head is not None:
@@ -165,13 +179,16 @@ def _nchw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2) if t.dim() == 4 else t
 
 
-def _check_engine(engine: str, keep_env: bool = False,
-                  plain: bool = False) -> None:
+def _check_engine(model: QuantizedModel, engine: str,
+                  keep_env: bool = False, plain: bool = False) -> None:
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r}: one of {ENGINES}")
     if engine != "fused" and (keep_env or plain):
         raise ValueError(f"keep_env and plain run on the fused engine, "
                          f"not {engine!r}")
+    if engine != "fused":
+        # the nibble-split and slab convs are dense ones
+        require_dense_graph(model.graph, f"the {engine} engine")
 
 
 def slab_plan(model: QuantizedModel, plan: Dict):
@@ -204,10 +221,13 @@ def run_node(model: QuantizedModel, plan: Dict, idx: int,
     parallel/mesh.py on widened bands. ``extra``: where keep_env's
     intermediates go (None: not collected). The node runs inside its
     span (utils/profiling.SPANS): ``ayq.forward.conv.<name>`` for a conv
-    layer, ``ayq.forward.<kind>`` for the others."""
+    layer, ``ayq.forward.attn.<name>`` for an attention node,
+    ``ayq.forward.<kind>`` for the others."""
     node = model.graph.nodes[idx]
     if isinstance(node, ConvNode):
         name, layer = "ayq.forward.conv.", node.name
+    elif isinstance(node, AttentionNode):
+        name, layer = "ayq.forward.attn.", node.name
     else:
         name, layer = _GLUE_SPANS[type(node)], ""
     with span(name, layer):
@@ -231,10 +251,14 @@ def _run_node(model: QuantizedModel, plan: Dict, idx: int, node,
         if engine == "pallas":
             env[node.dst] = _pallas_conv(node, c, x, plan["sig_lut"], qmax)
             return
-        conv = (fused_ops.conv_plain if plain
-                else fused_ops.conv1x1 if node.kernel == 1
-                else fused_ops.conv3x3)
-        env[node.dst] = conv(x, c, plan["sig_lut"], qmax)
+        if node.groups > 1:
+            conv = fused_ops.dwconv3x3_plain if plain else fused_ops.dwconv3x3
+        else:
+            conv = (fused_ops.conv_plain if plain
+                    else fused_ops.conv1x1 if node.kernel == 1
+                    else fused_ops.conv3x3)
+        sig = plan["unit_lut"] if node.requant_out else plan["sig_lut"]
+        env[node.dst] = conv(x, c, sig, qmax)
         if extra is not None and node.silu:
             acc = fused_ops.conv_acc_plain(x, c)
             extra[f"{node.name}:sigdom"] = _nchw(
@@ -271,6 +295,10 @@ def _run_node(model: QuantizedModel, plan: Dict, idx: int, node,
     elif isinstance(node, UpsampleNode):
         env[node.dst] = upsample_nearest(env[node.src], node.factor,
                                          nhwc=True)
+    elif isinstance(node, AttentionNode):
+        att = fused_ops.attention_plain if plain else fused_ops.attention
+        env[node.dst], env[node.v_dst] = att(
+            env[node.src], plan["attns"][node.name], qmax)
     else:  # pragma: no cover
         raise TypeError(type(node))
 
@@ -333,7 +361,7 @@ def int_forward(model: QuantizedModel, plan: Dict, x_q: torch.Tensor,
             raise ValueError(
                 "segments run the plain NCHW engines (no keep_env/nhwc/"
                 "pallas)")
-    _check_engine(engine, keep_env, plain)
+    _check_engine(model, engine, keep_env, plain)
     if segmented:
         env: Dict[str, torch.Tensor] = {
             e: t.permute(0, 2, 3, 1).contiguous() for e, t in env_in.items()}
@@ -591,7 +619,7 @@ def build_int_pipeline(model: QuantizedModel, device="cuda",
     )
     from alpha_yolo_quant_torch.serving import split_by_sizes
 
-    _check_engine(engine, plain=plain)
+    _check_engine(model, engine, plain=plain)
     if options is None:
         options = EngineOptions()
     device = torch.device(device)

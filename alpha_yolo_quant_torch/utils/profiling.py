@@ -48,7 +48,10 @@ SPANS = {
     "ayq.forward": "the padding, int_forward (or the sharded forward of "
                    "parallel/mesh.py) and the slice back",
     "ayq.forward.conv.": "one conv layer, by ConvNode.name: the kernel "
-                         "call and its wrapper",
+                         "call and its wrapper (dwconv3x3 for a depthwise "
+                         "conv)",
+    "ayq.forward.attn.": "one attention node, by AttentionNode.name: "
+                         "fused_ops.attention, one launch of csrc/attn.cu",
     "ayq.forward.split": "a SplitNode's two channel halves",
     "ayq.forward.add": "a ResidualAddNode: requant, add, clamp and cast "
                        "as one requant_combine_kernel launch "

@@ -6,8 +6,8 @@ Phases (each one raises on failure; nothing falls back to the CPU):
   1. print the card's name and power limit; build the Hopper kernels from
      alpha_yolo_quant_torch/runtime/csrc and print the build seconds;
      count the integer tensor-core (IGMMA/IMMA) and __dp4a/__dp2a (IDP)
-     instructions in each library's SASS: the conv and slab-conv
-     libraries must have tensor-core ones and no IDP;
+     instructions in each library's SASS: the conv, slab-conv and
+     attention libraries must have tensor-core ones and no IDP;
   2. build a yolov8n K=8 full-quant 640 model with random weights from a
      seed, calibrated by the port's own float forward;
   3. hold every kernel against its plain PyTorch version on the card,
@@ -29,6 +29,11 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      of yolov8n and yolov8m at B=128 640 px and yolov8m-p6 at B=32 1280 px
      (the benchmark cells), one launch a call, timed summed over each
      model's nodes beside the plain torch chain and the byte bound;
+     the YOLO11 kernels at B=8 and B=128 on inputs drawn anew for each
+     call: dwconv3x3 at each of yolo11m's seven depthwise convs at 640 px
+     (the SiLU table, the table of ones for the pe) and attention at its
+     4 heads over 400 pixels, one launch a call, timed beside the plain
+     version and the bound;
   4. serve three coalesced requests (4 uint8 + 8 f32 + 4 f32 images)
      through build_int_pipeline on each engine (fused, pallas, packed),
      with the launch counts set to 0 just before each and read just after:
@@ -37,7 +42,11 @@ Phases (each one raises on failure; nothing falls back to the CPU):
      detections
      must equal the plain path's bit for bit; one image's head edges must
      equal the numpy int64 oracle golden_forward, and its decoded planes
-     golden's decode_full_quant_np;
+     golden's decode_full_quant_np; yolo11m at 640 (random weights,
+     calibrated on the card) serves two coalesced requests on the fused
+     engine, counted: 105 conv_wgmma, 7 dwconv and 1 attn launches and
+     every add and concat on the glue kernel, detections equal to the
+     plain path's bit for bit;
   5. outside oracles at 640: two images' full-quant detections from the
      card equal the CPU pipeline's bit for bit; a partial-quant model (the
      float head on the card) serves two images whose head edges equal the
@@ -91,7 +100,8 @@ Phases (each one raises on failure; nothing falls back to the CPU):
 then print the kernels line (every kernel with its launches on its path,
 error, times and bound; sigma_probe also with the launch floor, an empty
 kernel's device time; glue_add and glue_concat with the fused engine's
-launches) and, last, the device line.
+launches; dwconv and attn with the yolo11m forward's) and, last, the
+device line.
 """
 
 from __future__ import annotations
@@ -129,6 +139,9 @@ KERNELS = {   # name -> (source in the repo, TPU kernel it replaces)
                  "alpha_yolo_quant_tpu/runtime/interpreter.py:544 (XLA)"),
     "glue_concat": ("alpha_yolo_quant_torch/runtime/csrc/glue.cu",
                     "alpha_yolo_quant_tpu/runtime/interpreter.py:564 (XLA)"),
+    # no TPU kernel: the JAX package has no YOLO11
+    "dwconv": ("alpha_yolo_quant_torch/runtime/csrc/dwconv.cu", "none"),
+    "attn": ("alpha_yolo_quant_torch/runtime/csrc/attn.cu", "none"),
 }
 _GLUE = ("glue_add", "glue_concat")
 ENGINE_KERNELS = {   # kernels each serving engine launches
@@ -211,7 +224,8 @@ KERNEL_CASES = [
     ("3x3 s1 head 80->80", "x_result_5_down_1", False, True),
     ("3x3 s1 128->128", "C2F_8_bottle_0", False, True),
 ]
-CONV_LIBS = ("conv1x1", "conv3x3", "packed_conv")   # tensor-core kernels
+# the libraries that must run on integer tensor cores
+TENSOR_CORE_LIBS = ("conv1x1", "conv3x3", "packed_conv", "attn")
 # (kernel, conv name): the postconv epilogues on the partials of a conv
 POSTCONV_CASES = [("postconv_silu", "Conv_P1"),
                   ("postconv_plain", "x_result_5_down_2")]
@@ -260,8 +274,9 @@ def keep_case(res: dict, name: str, work: float, **fields) -> None:
 def check_tensor_cores() -> None:
     """Phase 1b: integer tensor-core (IGMMA, IMMA) and dot-product (IDP.4A
     = __dp4a, IDP.2A = __dp2a) instructions in each library's SASS
-    (cuobjdump -sass); fails if a conv library has no tensor-core one or
-    any dot-product one."""
+    (cuobjdump -sass); fails if a library of TENSOR_CORE_LIBS (the convs,
+    the slab conv, the attention) has no tensor-core one or any
+    dot-product one."""
     from alpha_yolo_quant_torch.runtime import _build
 
     tool = _build.cuda_tool("cuobjdump")
@@ -272,7 +287,7 @@ def check_tensor_cores() -> None:
         n = {op: len(re.findall(rf"\b{re.escape(op)}\.", sass))
              for op in ("IGMMA", "IMMA", "IDP.4A", "IDP.2A")}
         log(f"sass {name}: " + " ".join(f"{k}={v}" for k, v in n.items()))
-        if name in CONV_LIBS and (n["IGMMA"] + n["IMMA"] == 0
+        if name in TENSOR_CORE_LIBS and (n["IGMMA"] + n["IMMA"] == 0
                                   or n["IDP.4A"] + n["IDP.2A"] > 0):
             raise AssertionError(f"{name}: its SASS has no integer "
                                  "tensor-core instruction, or a __dp4a")
@@ -655,6 +670,8 @@ def check_kernels(model, plan, batch: int, reps: int = 10):
     for b in (batch, 128):
         check_packed_kernel(model, plan, res, b, reps)
     check_glue_kernels(res, reps)
+    for b in (batch, 128):
+        check_yolo11_kernels(res, b, reps)
     return res
 
 
@@ -750,6 +767,129 @@ def check_glue_kernels(res, reps: int):
                       bound_by=bound_by, library_ms=None, shape=shape)
 
 
+def yolo11_attn_plan(x, heads: int):
+    """The attention's constants for an int8 qkv batch x: the transform's
+    _attn_plan, its logit and output taps calibrated on the float
+    attention of x's first image at the input scale 127 / 4."""
+    import torch
+
+    from alpha_yolo_quant_torch.config import QuantConfig
+    from alpha_yolo_quant_torch.models.graph import AttentionNode
+    from alpha_yolo_quant_torch.ops.nn import attention_f32
+    from alpha_yolo_quant_torch.quantize.transform import _attn_plan
+
+    node = AttentionNode("attn", "qkv", "out", "v", heads, 32, 64, "logits",
+                         "out")
+    s = 127 / 4.0
+    x0 = x[:1].to("cpu", torch.float64).permute(0, 3, 1, 2) / s
+    logits, out, _ = attention_f32(x0, heads, 32, 64)
+    max_a = {"logits": float(logits.abs().max()),
+             "out": float(out.abs().max())}
+    return _attn_plan(node, s, max_a,
+                      QuantConfig(model="yolo11m", k=8, full_quant=True))
+
+
+def check_yolo11_kernels(res, batch: int, reps: int):
+    """Phase 3f: dwconv3x3 (K7) at each of yolo11m's seven depthwise convs
+    at 640 px (256 and 512 channels over 80, 40 and 20 px maps; the SiLU
+    table, or for the attention's pe the table of ones), and attention
+    (K8) at its 4 heads over 400 pixels, on int8 input drawn anew for
+    every call and every image, against dwconv3x3_plain / attention_plain
+    (max|diff| 0), one launch a call (the counter read just before and
+    after); then device ms of kernel and plain, and the bound: the bytes
+    in and out at the HBM rate, against the attention's 2 N^2 (kd + hd)
+    operations a head at the int8 rate."""
+    import torch
+
+    from alpha_yolo_quant_torch.config import QuantConfig
+    from alpha_yolo_quant_torch.engine_profile import bound, device_ms, nbytes
+    from alpha_yolo_quant_torch.models.graph import (
+        build_yolov8_graph, edge_shapes,
+    )
+    from alpha_yolo_quant_torch.ops.lut import DeviceLut
+    from alpha_yolo_quant_torch.quantize.luts import sigmoid_lut, unit_lut
+    from alpha_yolo_quant_torch.runtime import fused_ops
+
+    graph = build_yolov8_graph(QuantConfig(model="yolo11m", full_quant=True))
+    shapes = edge_shapes(graph, 640)
+    sig, unit = (DeviceLut(t, "cuda") for t in (sigmoid_lut(6.0, 8),
+                                                unit_lut(8)))
+    rng = np.random.default_rng(11 + batch)
+    gen = torch.Generator(device="cuda").manual_seed(11 + batch)
+
+    def counted(kind, fn, args, label):
+        before = fused_ops.LAUNCHES[kind]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        if fused_ops.LAUNCHES[kind] != before + 1:
+            raise AssertionError(f"{label}: not one {kind} launch a call")
+        return got
+
+    for n in graph.convs():
+        if n.groups == 1:
+            continue
+        c, h, w = shapes[n.src]
+        x = torch.randint(-127, 128, (batch, h, w, c), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        consts = (rng.integers(1, 256, c), rng.integers(12, 18, c),
+                  rng.integers(1, 256, c), rng.integers(18, 26, c))
+        if n.requant_out:
+            consts = fused_ops.requant_consts(consts[2], consts[3] - 6)
+        ent = fused_ops.dwconv_entry(rng.integers(-127, 128, (c, 1, 3, 3)),
+                                     rng.integers(-3000, 3000, c), "cuda",
+                                     *consts)
+        lut = unit if n.requant_out else sig
+        args = (x, ent, lut, 127)
+        label = (f"B={batch} {n.name} {c}ch {h}px "
+                 f"{'plain' if n.requant_out else 'silu'}")
+        got = counted("dwconv", fused_ops.dwconv3x3, args, label)
+        err = max_err(got, fused_ops.dwconv3x3_plain(*args), f"dwconv {label}")
+        if len(torch.unique(got)) < 64:
+            raise AssertionError(f"dwconv {label}: outputs do not spread")
+        ms = device_ms(lambda: fused_ops.dwconv3x3(*args), reps)
+        plain_ms = device_ms(lambda: fused_ops.dwconv3x3_plain(*args),
+                             max(2, reps // 5))
+        n_bytes = nbytes(x, got, ent["w_taps"], ent["b"])
+        bound_ms, bound_by = bound(n_bytes, 2 * 9 * x.numel())
+        log(f"kernel dwconv [{label}]: max_abs_err={err} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({100 * bound_ms / ms:.1f}% of bound)")
+        keep_case(res, "dwconv", n_bytes, max_abs_err=err, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=None, shape=label)
+        del x, got, args
+    for node in graph.attentions():
+        c, h, w = shapes[node.src]
+        x = torch.randint(-127, 128, (batch, h, w, c), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        ent = fused_ops.attn_entry(yolo11_attn_plan(x, node.heads), "cuda")
+        n_pix = h * w
+        label = (f"B={batch} {node.name} {node.heads} heads over {n_pix} "
+                 f"px, kd {node.key_dim} hd {node.head_dim}")
+        out, v = counted("attn", fused_ops.attention, (x, ent, 127), label)
+        pout, pv = fused_ops.attention_plain(x, ent, 127)
+        err = max(max_err(out, pout, f"attn {label}"),
+                  max_err(v, pv, f"attn {label} v"))
+        if batch > 1 and torch.equal(out[0], out[-1]):
+            raise AssertionError(f"attn {label}: images give one output")
+        ms = device_ms(lambda: fused_ops.attention(x, ent, 127), reps)
+        plain_ms = device_ms(lambda: fused_ops.attention_plain(x, ent, 127),
+                             max(2, reps // 5))
+        ops = 2 * n_pix ** 2 * (node.key_dim + node.head_dim) * node.heads \
+            * batch
+        bound_ms, bound_by = bound(nbytes(x, out), ops)
+        log(f"kernel attn [{label}]: max_abs_err={err} nonzero="
+            f"{float((out != 0).float().mean()):.3f} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({100 * bound_ms / ms:.1f}% of bound, by {bound_by}; q, k, v "
+            f"in and out out, as attn_roofline counts)")
+        keep_case(res, "attn", ops, max_abs_err=err, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=None, shape=label)
+        del x, out, v, pout, pv
+    torch.cuda.empty_cache()
+
+
 def expected_launches(model, engine: str, sp=None) -> dict:
     """The launches one forward must make on each engine; sp is the packed
     engine's slab plan, whose nodes run outside the kernels counted here
@@ -839,6 +979,62 @@ def serve(model, device):
         plans[engine] = plan
         per_engine[engine] = counts
     return launches, plans, reqs, want, per_engine
+
+
+def yolo11_phase(device) -> dict:
+    """Phase 4c: yolo11m K=8 full quant at 640 (engine_profile.build_model:
+    random weights, the port's calibration on the card) served on the
+    fused engine, two coalesced requests (4 uint8 + 2 f32 images), with
+    the launch counts set to 0 just before and read just after: 105
+    conv_wgmma (conv1x1 + conv3x3), 7 dwconv and 1 attn launches, every
+    add and concat through the glue kernel; the detections equal the
+    plain path's bit for bit. Returns the launches."""
+    import torch
+
+    from alpha_yolo_quant_torch.engine_profile import build_model
+    from alpha_yolo_quant_torch.runtime import fused_ops
+    from alpha_yolo_quant_torch.runtime.interpreter import build_int_pipeline
+
+    t0 = time.perf_counter()
+    model = build_model(640, device, model="yolo11m")
+    graph = model.graph
+    rng = np.random.default_rng(21)
+    reqs = [torch.as_tensor(rng.integers(0, 256, (4, 3, 640, 640))
+                            .astype(np.uint8), device=device),
+            torch.as_tensor(rng.uniform(0, 1, (2, 3, 640, 640))
+                            .astype(np.float32), device=device)]
+    want = build_int_pipeline(model, device, coalesce_requests=2,
+                              plain=True)[0](*reqs)
+    fn, _ = build_int_pipeline(model, device, coalesce_requests=2)
+    torch.cuda.synchronize()
+    fused_ops.reset_counts()
+    got = fn(*reqs)
+    torch.cuda.synchronize()
+    counts = dict(fused_ops.LAUNCHES)
+    exp = {"conv": sum(n.groups == 1 for n in graph.convs()),
+           "dwconv": sum(n.groups > 1 for n in graph.convs()),
+           "attn": len(graph.attentions()),
+           **{k: v for k, v in expected_launches(model, "fused").items()
+              if k != "conv"}}
+    seen = {"conv": counts["conv1x1"] + counts["conv3x3"],
+            **{k: counts[k] for k in exp if k != "conv"}}
+    log(f"yolo11m [fused]: 2 coalesced requests (4 uint8 + 2 f32 images, "
+        f"640px) -> launches {counts}; expected per forward {exp}")
+    if (exp["conv"], exp["dwconv"], exp["attn"]) != (105, 7, 1) \
+            or seen != exp:
+        raise AssertionError("yolo11m: the fused forward did not run 105 "
+                             "dense convs, 7 depthwise convs, 1 attention "
+                             "and every add and concat through the kernels")
+    total = 0
+    for i, ((det, n), (det_p, n_p)) in enumerate(zip(got, want)):
+        if not (torch.equal(det, det_p) and torch.equal(n, n_p)):
+            raise AssertionError(f"yolo11m request {i}: detections differ "
+                                 "from the plain path")
+        total += int(n.sum())
+    log(f"yolo11m [fused]: detections equal the plain path bit for bit "
+        f"({total} detections over 6 images) in "
+        f"{time.perf_counter() - t0:.1f} s with the build and calibration")
+    return {k: counts[k] for k in ("dwconv", "attn")}
 
 
 def golden_heads(model, plan, x_u8):
@@ -1797,6 +1993,7 @@ def main() -> int:
     kres = check_kernels(model, device_plan(model, dev), batch=8)
     launches, plans, reqs, dense, per_engine = serve(model, dev)
     golden_heads(model, plans["fused"], reqs[0][:1])
+    launches.update(yolo11_phase(dev))
     check_against_cpu(model, dev)
     check_partial_quant(dev)
     _, calib_files = deployed_path(dev, card)
